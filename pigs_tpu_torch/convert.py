@@ -1,0 +1,129 @@
+"""Flax parameter trees <-> torch state dicts for the dynamics network.
+
+A flax tree is handed over flat: its paths joined with ``/`` as keys (for
+example ``params/query_0/Dense_1/kernel``) and numpy arrays as values, the
+form ``scripts/export_torch_fixture.py`` writes.  The name map:
+
+  params/InputTransform_0/latent_net/Dense_i      input_transform.latent_net.layers.i
+  params/InputTransform_0/<net>/MLP_0/Dense_i     input_transform.<net>.mlp.layers.i
+  params/{input_projection,delta_net}/Dense_i     {input_projection,delta_net}.layers.i
+  params/{query,key}_h/Dense_i                    {query,key}.h.layers.i
+  .../kernel (in, out)                            .../weight (out, in), transposed
+  .../bias                                        .../bias
+  params/{transform,distance_transform}_h         the same name, raw (U[0, 2))
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+__all__ = ["flax_to_torch_name", "torch_to_flax_name", "params_from_flax",
+           "params_to_flax", "load_fixture"]
+
+_RAW = re.compile(r"^(distance_transform|transform)_(\d+)$")
+
+
+def flax_to_torch_name(path: str) -> str:
+    """Map one flax path to its torch state-dict key."""
+    parts = path.split("/")
+    if parts[0] != "params":
+        raise KeyError(f"not a flax params path: {path!r}")
+    parts = parts[1:]
+    if len(parts) == 1 and _RAW.match(parts[0]):
+        return parts[0]
+    leaf = {"kernel": "weight", "bias": "bias"}.get(parts[-1])
+    if leaf is None:
+        raise KeyError(f"unknown flax leaf in {path!r}")
+    out = []
+    for p in parts[:-1]:
+        if p == "InputTransform_0":
+            out.append("input_transform")
+        elif p == "MLP_0":
+            out.append("mlp")
+        elif (m := re.fullmatch(r"Dense_(\d+)", p)):
+            out += ["layers", m.group(1)]
+        elif (m := re.fullmatch(r"(query|key)_(\d+)", p)):
+            out += [m.group(1), m.group(2)]
+        elif p in ("latent_net", "input_projection", "delta_net") or (
+                p.startswith("transform_") and p.endswith("_net")):
+            out.append(p)
+        else:
+            raise KeyError(f"unknown flax module {p!r} in {path!r}")
+    return ".".join(out + [leaf])
+
+
+def torch_to_flax_name(key: str) -> str:
+    """Inverse of :func:`flax_to_torch_name`."""
+    if _RAW.match(key):
+        return f"params/{key}"
+    parts = key.split(".")
+    leaf = {"weight": "kernel", "bias": "bias"}[parts[-1]]
+    out, i = [], 0
+    body = parts[:-1]
+    while i < len(body):
+        p = body[i]
+        if p == "input_transform":
+            out.append("InputTransform_0")
+        elif p == "mlp":
+            out.append("MLP_0")
+        elif p == "layers":
+            out.append(f"Dense_{body[i + 1]}")
+            i += 1
+        elif p in ("query", "key"):
+            out.append(f"{p}_{body[i + 1]}")
+            i += 1
+        else:
+            out.append(p)
+        i += 1
+    return "/".join(["params", *out, leaf])
+
+
+def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flat flax params dict -> a torch state dict (Dense kernels
+    transposed, attention params carried raw).  Dtypes are kept."""
+    state = {}
+    for path, value in flat.items():
+        arr = np.asarray(value)
+        if path.endswith("/kernel"):
+            arr = arr.T
+        state[flax_to_torch_name(path)] = torch.tensor(arr)
+    return state
+
+
+def load_fixture(path: str, device=None):
+    """Load an exported rollout fixture (``scripts/export_torch_fixture.py``).
+
+    Returns ``(cfg, network, data)``: the model config, the dynamics network
+    with the fixture's parameters and frequencies in float32 on ``device``,
+    and the file's remaining arrays (``jax_frames``, ``fd_frames``, ...) as
+    numpy.
+    """
+    from pigs_tpu_torch.models.model import ModelConfig, make_network
+    from pigs_tpu_torch.pde import IntegrationRule, Problem
+
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    flat = {k: data.pop(k) for k in list(data) if k.startswith("params/")}
+    nx = int(data["config_nx"])
+    cfg = ModelConfig.create(Problem[str(data["config_problem"])],
+                             IntegrationRule.TRAPEZOID, nx=nx, ny=nx, d=2,
+                             scale=1.0, capacity=int(data["config_capacity"]))
+    network = make_network(cfg, frequencies=torch.from_numpy(
+        data["frequencies"]), device=device)
+    network.load_state_dict(params_from_flax(flat))
+    return cfg, network, data
+
+
+def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`params_from_flax`."""
+    flat = {}
+    for key, value in state.items():
+        arr = value.detach().cpu().numpy()
+        if key.endswith(".weight"):
+            arr = arr.T
+        flat[torch_to_flax_name(key)] = np.ascontiguousarray(arr)
+    return flat

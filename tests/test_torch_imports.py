@@ -1,0 +1,46 @@
+"""The PyTorch port imports no JAX-family module and nothing of pigs_tpu.
+
+A static scan of the ASTs: importing the package to look would prove
+nothing here, since the test process has JAX loaded already.
+"""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "pigs_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "rollout_torch.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pigs_tpu")
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"mixture_kernel.py", "model.py", "pn.py", "convert.py"} <= names
+
+
+def test_scan_catches_a_forbidden_import(tmp_path):
+    f = tmp_path / "bad.py"
+    f.write_text("import numpy\nfrom jax import numpy as jnp\n"
+                 "from pigs_tpu.ops import oracle\n")
+    assert [m for m in imported_modules(f)
+            if m.split(".")[0] in FORBIDDEN] == ["jax", "pigs_tpu.ops"]
