@@ -7,21 +7,46 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure exits non-zero:
 
-  1. device   the card's name and power limit, torch and CUDA versions, and
-              the build of the CUDA kernel K1 (mixture forward) from
-              pigs_tpu_torch/ops/csrc/ with nvcc for sm_90a;
-  2. kernel   K1 against its plain PyTorch twin and the plain path in float32
-              (norm-relative error <= 1e-5 per field) and against the plain
-              path in float64 (<= 1e-4), at the two shapes of the rollout, a
-              ragged case at orders 0-3, c in {1, 2}, with and without a
-              period, and d=1 through the d=2 embedding;
-  3. rollout  the 50-step rollout of the Burgers flagship at capacity 1664
-              from artifacts/burgers_ns4096_ema2_torch.npz: exactly 2 K1
-              launches per step, finite frames, frames against the JAX frames
-              in the fixture, and mean rel-L2 against the stored FD frames
-              within 0.005 of the JAX-CPU value;
-  4. times    median of 20 CUDA-event timed runs of K1 and of its plain twin
-              at both rollout shapes, and the timed rollout.
+  1. device    the card's name and power limit, torch and CUDA versions, and
+               the builds of the CUDA kernels from pigs_tpu_torch/ops/csrc/
+               with nvcc for sm_90a, both sources at once: K1 (mixture
+               forward) and K2/K3 (its backward, Gaussian and sample side);
+  2. kernel    K1 against its plain PyTorch twin and the plain path in
+               float32 (norm-relative error <= 1e-5 per field) and against
+               the plain path in float64 (<= 1e-4), at the two shapes of the
+               rollout, a ragged case at orders 0-3, c in {1, 2}, with and
+               without a period, and d=1 through the d=2 embedding;
+  3. backward  K2 and K3 against their plain twins in float32 (<= 1e-5) and
+               against torch autograd through the float64 dense oracle
+               (<= 1e-4, conic gradients symmetrized), at the two training
+               shapes (collocation and boundary samples of the training
+               fixture), the ragged cases and d=1; the launch counters rise,
+               and K3 stays idle when the samples need no gradient;
+  4. rollout   the 50-step rollout of the Burgers flagship at capacity 1664
+               from artifacts/burgers_ns4096_ema2_torch.npz: exactly 2 K1
+               launches per step, finite frames, frames against the JAX
+               frames in the fixture, and mean rel-L2 against the stored FD
+               frames within 0.005 of the JAX-CPU value;
+  5. step      one training step (pn_step) at full width from the training
+               fixture (artifacts/burgers_ns4096_ema2_train_torch.npz) in
+               float32 through K1/K2, against the JAX float64 reference:
+               loss terms rel <= 1e-4, the gradient norm-rel <= 1e-3, the
+               parameter update norm-rel <= 1e-2; the plain path's errors
+               are printed beside them;
+  6. epoch     the resumed 20-step split-regime epoch on the fixture's
+               inputs: exact K1/K2 launch counts, finite losses, per-step
+               totals within 1e-2 of JAX's up to the first step whose active
+               mask differs from JAX's (reported, not failed: split
+               decisions threshold on float32 values);
+  7. train     train() resumed from the fixture for 3 epochs of the flagship
+               recipe; a checkpoint saved and restored equal; the EMA
+               parameters rolled out, mean rel-L2 vs FD within 0.005 of the
+               JAX-CPU rollout of the checkpoint;
+  8. times     median of 20 CUDA-event timed runs of K1, K2 and K3 and of
+               their plain twins at the main path's shapes; pn_step and the
+               epoch through the kernels and through the plain path; a
+               profile of training steps (kernels and device idle share);
+               the timed rollout.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the last line is a JSON object with ``ok`` and the device.  Without a CUDA
@@ -30,18 +55,27 @@ device, or outside a checkout of the repo, it fails and prints no result.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "artifacts", "burgers_ns4096_ema2_torch.npz")
+TRAIN_FIXTURE = os.path.join(ROOT, "artifacts",
+                             "burgers_ns4096_ema2_train_torch.npz")
+SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 
-KERNEL_F32_TOL = 1e-5    # K1 vs the same math in float32, summed in another order
-KERNEL_F64_TOL = 1e-4    # K1 vs the float64 oracle (the repo's bound, BASELINE.md:21)
+KERNEL_F32_TOL = 1e-5    # a kernel vs the same math in float32, summed in another order
+KERNEL_F64_TOL = 1e-4    # a kernel vs the float64 oracle (the repo's bound, BASELINE.md:21)
 FRAME0_TOL = 1e-5        # frame 0 renders the same initial state as JAX did
 EARLY_FRAMES_TOL = 1e-3  # steps 1-5: float32 differences through the network
 MEAN_REL_L2_TOL = 0.005  # mean rel-L2 vs FD, against the JAX-CPU rollout's
+STEP_LOSS_TOL = 1e-4     # pn_step loss terms, float32 vs JAX float64
+STEP_GRAD_TOL = 1e-3     # pn_step flattened gradient, norm-relative
+STEP_UPDATE_TOL = 1e-2   # pn_step parameter update, norm-relative
+EPOCH_TOTAL_TOL = 1e-2   # per-step totals while the split decisions agree
 
 
 class SmokeFailure(Exception):
@@ -68,6 +102,10 @@ def rel_err(a, b) -> float:
     return torch.linalg.vector_norm(a - b).item() / (denom if denom else 1.0)
 
 
+def sym(g):
+    return 0.5 * (g + g.transpose(-1, -2))
+
+
 def random_mixture(gen, n, m, c, d, device):
     """Random Gaussians and samples, made in float64 on the CPU from ``gen``
     and rounded to float32, so every version sees the same numbers."""
@@ -87,7 +125,7 @@ def random_mixture(gen, n, m, c, d, device):
 
 
 def compare_case(label, means, conics, values, samples, order, mask, period,
-                 k1):
+                 mk):
     """Run K1 and the plain versions on one input; return the errors."""
     import torch
 
@@ -95,10 +133,10 @@ def compare_case(label, means, conics, values, samples, order, mask, period,
     from pigs_tpu_torch.ops.mixture_kernel import (mixture_forward_plain,
                                                    pack_conics, unpack_fields)
     args = dict(order=order, mask=mask, period=period)
-    before = k1.launches
+    before = mk.launches
     out = eval_mixture(means, conics, values, samples, **args)
     torch.cuda.synchronize()
-    check(k1.launches == before + 1, f"{label}: K1 was not launched")
+    check(mk.launches == before + 1, f"{label}: K1 was not launched")
     plain32 = eval_mixture(means, conics, values, samples, impl="plain", **args)
     plain64 = eval_mixture(means.double(), conics.double(), values.double(),
                            samples.double(), impl="plain", **args)
@@ -132,18 +170,77 @@ def compare_case(label, means, conics, values, samples, order, mask, period,
     return errs
 
 
-def slice_inputs(cfg, state, res):
-    """The two K1 calls of one rollout step, as the rollout makes them."""
-    from pigs_tpu_torch.models.state import covariance_of
-    from pigs_tpu_torch.utils.sampling import image_samples
-    _, conics = covariance_of(state)
-    grid = image_samples(res, cfg.scale, cfg.dtype, state.means.device)
-    return {
-        "means 1664x1664 order 2": (state.means, conics, state.u, state.means,
-                                    2, state.active),
-        "render 4096x1664 order 0": (state.means, conics, state.u, grid, 0,
-                                     state.interior),
-    }
+def random_cotangents(gen, m, c, d, order, device):
+    import torch
+    shapes = [(m, c), (m, d, c), (m, d, d, c), (m, d, d, d, c)]
+    return [torch.randn(s, generator=gen, dtype=torch.float64).float()
+            .to(device) for s in shapes[:order + 1]]
+
+
+def mixture_grads(means, conics, values, samples, cots, order, mask, period,
+                  impl, samples_grad=True):
+    """Gradients of sum(field * cotangent) through ``eval_mixture``."""
+    import torch
+
+    from pigs_tpu_torch.ops.mixture import eval_mixture
+    tin = [means.clone().requires_grad_(), conics.clone().requires_grad_(),
+           values.clone().requires_grad_(),
+           samples.clone().requires_grad_(samples_grad)]
+    out = eval_mixture(*tin, order=order, mask=mask, period=period, impl=impl)
+    loss = sum(torch.sum(f * c.to(f.dtype)) for f, c in zip(out, cots))
+    want = tin if samples_grad else tin[:3]
+    return list(torch.autograd.grad(loss, want))
+
+
+def compare_backward(label, means, conics, values, samples, order, mask,
+                     period, mk, gen):
+    """K2/K3 on one input: launches, the f64 oracle's gradients, and (d=2)
+    the plain twins on the packed inputs.  Returns the errors."""
+    import torch
+
+    from pigs_tpu_torch.ops.mixture_kernel import pack_conics
+    m, c, d = samples.shape[0], values.shape[1], samples.shape[1]
+    cots = random_cotangents(gen, m, c, d, order, samples.device)
+    g2, g3 = mk.bwd_gauss_launches, mk.bwd_sample_launches
+    got = mixture_grads(means, conics, values, samples, cots, order, mask,
+                        period, "auto")
+    torch.cuda.synchronize()
+    check(mk.bwd_gauss_launches == g2 + 1 and mk.bwd_sample_launches == g3 + 1,
+          f"{label}: K2/K3 launches {mk.bwd_gauss_launches - g2}, "
+          f"{mk.bwd_sample_launches - g3}, expected 1 each")
+    want = mixture_grads(means.double(), conics.double(), values.double(),
+                         samples.double(), cots, order, mask, period, "plain")
+    errs = {"f64": 0.0, "twin": 0.0, "abs": 0.0}
+    for name, a, b in zip(("means", "conics", "values", "samples"), got, want):
+        check(bool(torch.isfinite(a).all()), f"{label}: grad {name} not finite")
+        if name == "conics":
+            a, b = sym(a), sym(b)
+        e = rel_err(a, b)
+        errs["f64"] = max(errs["f64"], e)
+        check(e <= KERNEL_F64_TOL,
+              f"{label} grad {name}: vs float64 oracle {e:.3e} > "
+              f"{KERNEL_F64_TOL}")
+    twin_msg = ""
+    if d == 2:
+        v = values * mask.to(values.dtype)[:, None] if mask is not None else values
+        packed = [x.contiguous() for x in (means, pack_conics(conics), v,
+                                           samples)]
+        pcots = [torch.randn((m, gs * c), generator=gen, dtype=torch.float64)
+                 .float().to(samples.device) for gs in (1, 2, 3, 4)[:order + 1]]
+        k2 = mk.mixture_backward_gauss(*packed, pcots, order, period)
+        k3 = mk.mixture_backward_sample(*packed, pcots, order, period)
+        p2 = mk.mixture_backward_gauss_plain(*packed, pcots, order, period)
+        p3 = mk.mixture_backward_sample_plain(*packed, pcots, order, period)
+        for name, a, b in zip(("gm", "gc", "gv", "gx"), (*k2, k3), (*p2, p3)):
+            e = rel_err(a, b)
+            errs["twin"] = max(errs["twin"], e)
+            errs["abs"] = max(errs["abs"], (a - b).abs().max().item())
+            check(e <= KERNEL_F32_TOL,
+                  f"{label} {name}: vs float32 twin {e:.3e} > {KERNEL_F32_TOL}")
+        twin_msg = f", twin f32 {errs['twin']:.3e}"
+    print(f"  {label}: grads rel err vs f64 oracle {errs['f64']:.3e}"
+          f"{twin_msg}", flush=True)
+    return errs
 
 
 def median_ms(fn, runs: int = 20) -> float:
@@ -162,6 +259,126 @@ def median_ms(fn, runs: int = 20) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn) -> float:
+    """Wall time of ``fn`` between two device synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def rollout_slice_inputs(cfg, state, res):
+    """The two K1 calls of one rollout step, as the rollout makes them."""
+    from pigs_tpu_torch.models.state import covariance_of
+    from pigs_tpu_torch.utils.sampling import image_samples
+    _, conics = covariance_of(state)
+    grid = image_samples(res, cfg.scale, cfg.dtype, state.means.device)
+    return {
+        "means 1664x1664 order 2": (state.means, conics, state.u, state.means,
+                                    2, state.active),
+        "render 4096x1664 order 0": (state.means, conics, state.u, grid, 0,
+                                     state.interior),
+    }
+
+
+class TrainInputs:
+    """The training fixture on the card: config, network and Adam state as
+    the checkpoint has them, the epoch's inputs, and the JAX references."""
+
+    def __init__(self, device):
+        import torch
+
+        from pigs_tpu_torch.convert import load_train_fixture
+        from pigs_tpu_torch.models.state import MixtureState
+        self.device = device
+        (self.cfg, self.network, self.opt, self.ema,
+         self.data) = load_train_fixture(TRAIN_FIXTURE, device=device)
+        self.names = [k for k, _ in self.network.named_parameters()]
+        self.params0 = [p.detach().clone() for p in self.network.parameters()]
+        self.opt0 = self.opt
+        d = self.data
+
+        def t(key):
+            x = torch.from_numpy(d[key])
+            return x.to(device=device, dtype=torch.float32
+                        if x.is_floating_point() else x.dtype)
+        self.state = MixtureState(*(t("input_" + f)
+                                    for f in MixtureState._fields))
+        self.samples, self.time_samples, self.bc_samples = (
+            t("input_samples"), t("input_time_samples"), t("input_bc_samples"))
+        self.dt = float(d["train_dt"])
+        self.base_lr = float(d["train_base_lr"])
+        self.epsilon = float(d["train_epsilon"])
+        self.floor = float(d["train_loss_weight_floor"])
+        self.clip = float(d["train_clip_norm"])
+        self.n_steps = int(d["train_n_steps"])
+
+    def reset(self):
+        """Parameters and Adam state back to the checkpoint's."""
+        import torch
+        with torch.no_grad():
+            for p, p0 in zip(self.network.parameters(), self.params0):
+                p.copy_(p0)
+        self.opt = self.opt0
+
+    def jax_tree(self, prefix):
+        """A stored JAX parameter tree as one flat float64 vector in the
+        network's parameter order."""
+        import torch
+
+        from pigs_tpu_torch.convert import params_from_flax
+        flat = {"params" + k[len(prefix):]: v for k, v in self.data.items()
+                if k.startswith(prefix + "/")}
+        tree = params_from_flax(flat)
+        return torch.cat([tree[k].flatten() for k in self.names]).double()
+
+    def flat_params(self):
+        import torch
+        return torch.cat([p.detach().flatten().double().cpu()
+                          for p in self.network.parameters()])
+
+    def prev_fields(self, cfg):
+        import torch
+
+        from pigs_tpu_torch.models.model import sample_fields
+        with torch.no_grad():
+            return sample_fields(cfg, self.state, self.samples,
+                                 self.bc_samples)
+
+
+def train_step_phase(ti, impl):
+    """One pn_step on ``impl``'s mixture path: errors against JAX f64."""
+    import torch
+
+    from pigs_tpu_torch.train.pn import pn_loss_grads, pn_step
+    cfg = ti.cfg._replace(mixture_impl=impl)
+    ti.reset()
+    prev = ti.prev_fields(cfg)
+    _, _, losses, total, grads = pn_loss_grads(
+        cfg, ti.network, ti.state, prev, ti.samples, ti.time_samples,
+        ti.bc_samples, 0.0, ti.dt)
+    got = torch.tensor([float(x) for x in losses] + [float(total)],
+                       dtype=torch.float64)
+    want = torch.from_numpy(ti.data["step_losses"])
+    loss_errs = [abs(a - b) / abs(b) if b else abs(a - b)
+                 for a, b in zip(got.tolist(), want.tolist())]
+    grad = torch.cat([g.flatten().double().cpu() for g in grads])
+    grad_err = rel_err(grad, ti.jax_tree("step_grads"))
+    before = ti.flat_params()
+    opt, _, _, _, _, lw = pn_step(
+        cfg, ti.network, ti.opt, ti.state, prev, ti.samples, ti.time_samples,
+        ti.bc_samples, torch.ones((), device=ti.device), ti.base_lr,
+        ti.epsilon, 0.0, ti.dt, loss_weight_floor=ti.floor, clip_norm=ti.clip,
+        skip_nonfinite=True)
+    update = ti.flat_params() - before
+    update_err = rel_err(update, ti.jax_tree("step_params") - before)
+    lw_err = abs(float(lw) - float(ti.data["step_loss_weight"]))
+    check(int(opt.count) == int(ti.opt0.count) + 1, "Adam count not advanced")
+    return loss_errs, grad_err, update_err, lw_err
+
+
 def run() -> tuple:
     try:
         import torch
@@ -172,71 +389,122 @@ def run() -> tuple:
     if not os.path.isdir(os.path.join(ROOT, "pigs_tpu_torch")):
         raise SmokeFailure(f"pigs_tpu_torch/ not found beside {__file__}: run "
                            "from a checkout of the repo")
-    check(os.path.exists(FIXTURE), f"fixture {FIXTURE} not found")
+    for path in (FIXTURE, TRAIN_FIXTURE):
+        check(os.path.exists(path), f"fixture {path} not found")
     sys.path.insert(0, ROOT)
 
+    import numpy as np
+
     from pigs_tpu_torch.convert import load_fixture
-    from pigs_tpu_torch.models.model import make_initial_state
-    from pigs_tpu_torch.ops import mixture_kernel as k1
-    from pigs_tpu_torch.train.pn import (rollout, rollout_frames,
-                                         rollout_metrics)
+    from pigs_tpu_torch.models.model import make_initial_state, make_network
+    from pigs_tpu_torch.models.state import covariance_of
+    from pigs_tpu_torch.ops import mixture_kernel as mk
+    from pigs_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from pigs_tpu_torch.train.pn import (TrainConfig, pn_epoch, rollout,
+                                         rollout_frames, rollout_metrics,
+                                         train)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    # 1. device and build
+    # 1. device and builds
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
-    info = k1.build()
-    print(f"[device] K1 built in {info.seconds:.2f} s "
-          f"({'compiled' if info.compiled else 'cached'}: {info.path})",
-          flush=True)
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    infos = mk.build()
+    print(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
+          "(both sources at once)", flush=True)
+    for name, info in infos.items():
+        print(f"[device] {name}: {info.seconds:.2f} s "
+              f"({'compiled' if info.compiled else 'cached'}: {info.path})",
+              flush=True)
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
 
-    # 2. kernel vs plain
+    # 2. K1 vs plain
     cfg, network, data = load_fixture(FIXTURE, device=dev)
     steps, res, dt = (int(data["config_steps"]), int(data["config_res"]),
                       float(data["config_dt"]))
     state0 = make_initial_state(cfg, device=dev)
     errs = []
+    gen = torch.Generator().manual_seed(0)
     with torch.inference_mode():
-        for label, (mu, con, val, smp, order, mask) in slice_inputs(
+        for label, (mu, con, val, smp, order, mask) in rollout_slice_inputs(
                 cfg, state0, res).items():
             errs.append(compare_case(label, mu, con, val, smp, order, mask,
-                                     cfg.period, k1))
-        gen = torch.Generator().manual_seed(0)
+                                     cfg.period, mk))
         for c in (1, 2):
             (mu, con, val, smp), mask = random_mixture(gen, 333, 1000, c, 2, dev)
             for period in (None, 2.0):
                 for order in range(4):
                     errs.append(compare_case(
                         f"ragged 1000x333 c={c} order {order} period {period}",
-                        mu, con, val, smp, order, mask, period, k1))
+                        mu, con, val, smp, order, mask, period, mk))
         (mu, con, val, smp), mask = random_mixture(gen, 333, 1000, 1, 1, dev)
         for order in range(4):
             errs.append(compare_case(f"d=1 1000x333 order {order}", mu, con,
-                                     val, smp, order, mask, None, k1))
-    max_abs = max(e["abs"] for e in errs)
+                                     val, smp, order, mask, None, mk))
+    k1_abs = max(e["abs"] for e in errs)
     print(f"[kernel] {len(errs)} cases pass; max rel err f32 "
           f"{max(e['f32'] for e in errs):.3e}, f64 "
           f"{max(e['f64'] for e in errs):.3e}; max abs err vs twin "
-          f"{max_abs:.3e}", flush=True)
+          f"{k1_abs:.3e}", flush=True)
 
-    # 3. the rollout, counted
-    k1.launches = 0
+    # 3. K2/K3 vs plain
+    ti = TrainInputs(dev)
+    _, conics_t = covariance_of(ti.state)
+    st = ti.state
+    train_shapes = {
+        "collocation 4096x1664 order 2": (ti.samples, 2),
+        "boundary 4096x1664 order 0": (ti.bc_samples, 0),
+    }
+    berrs = []
+    for label, (smp, order) in train_shapes.items():
+        berrs.append(compare_backward(label, st.means, conics_t, st.u, smp,
+                                      order, st.interior, None, mk, gen))
+        # As training differentiates it: the samples need no gradient.
+        g3 = mk.bwd_sample_launches
+        mixture_grads(st.means, conics_t, st.u, smp,
+                      random_cotangents(gen, smp.shape[0], 1, 2, order, dev),
+                      order, st.interior, None, "auto", samples_grad=False)
+        torch.cuda.synchronize()
+        check(mk.bwd_sample_launches == g3,
+              f"{label}: K3 launched though the samples need no gradient")
+    for c in (1, 2):
+        (mu, con, val, smp), mask = random_mixture(gen, 333, 1000, c, 2, dev)
+        for period in (None, 2.0):
+            for order in range(4):
+                berrs.append(compare_backward(
+                    f"ragged 1000x333 c={c} order {order} period {period}",
+                    mu, con, val, smp, order, mask, period, mk, gen))
+    (mu, con, val, smp), mask = random_mixture(gen, 333, 1000, 1, 1, dev)
+    for order in range(4):
+        berrs.append(compare_backward(f"d=1 1000x333 order {order}", mu, con,
+                                      val, smp, order, mask, None, mk, gen))
+    bwd_abs = max(e["abs"] for e in berrs)
+    print(f"[backward] {len(berrs)} cases pass; max rel err vs f64 "
+          f"{max(e['f64'] for e in berrs):.3e}, vs twin "
+          f"{max(e['twin'] for e in berrs):.3e}; max abs err vs twin "
+          f"{bwd_abs:.3e}; K3 idle when samples need no gradient",
+          flush=True)
+
+    # 4. the rollout, counted
+    counts = {}
+    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
     frames = rollout_frames(cfg, network, state0, steps, res, dt)
     torch.cuda.synchronize()
-    launches = k1.launches
-    check(launches == 2 * steps,
-          f"K1 launched {launches} times in the rollout, expected {2 * steps}")
+    counts["rollout"] = (mk.launches, mk.bwd_gauss_launches,
+                         mk.bwd_sample_launches)
+    check(counts["rollout"] == (2 * steps, 0, 0),
+          f"rollout launches (K1, K2, K3) {counts['rollout']}, expected "
+          f"({2 * steps}, 0, 0)")
     frames = frames.cpu().numpy()
     check(frames.shape == (steps, cfg.channels, res, res),
           f"frames shape {frames.shape}")
-    import numpy as np
     check(bool(np.isfinite(frames).all()), "rollout frames not finite")
     jax_frames = data["jax_frames"]
     vs_jax = [float(np.linalg.norm(frames[i] - jax_frames[i])
@@ -245,50 +513,268 @@ def run() -> tuple:
     jax_mean = float(data["jax_mean_rel_l2"])
     print("[rollout] per-step rel-L2 vs JAX frames: "
           + " ".join(f"{v:.2e}" for v in vs_jax), flush=True)
-    print("[rollout] per-step rel-L2 vs FD: "
-          + " ".join(f"{v:.4f}" for v in metrics["per_step_rel_norm"]),
-          flush=True)
     print(f"[rollout] mean rel-L2 vs FD {metrics['mean_rel_norm']:.6f} "
-          f"(JAX-CPU {jax_mean:.6f}); K1 launches {launches}", flush=True)
+          f"(JAX-CPU {jax_mean:.6f}); K1 launches {counts['rollout'][0]}",
+          flush=True)
     check(vs_jax[0] <= FRAME0_TOL, f"frame 0 vs JAX {vs_jax[0]:.3e}")
     check(max(vs_jax[1:6]) <= EARLY_FRAMES_TOL,
           f"steps 1-5 vs JAX {max(vs_jax[1:6]):.3e}")
     check(abs(metrics["mean_rel_norm"] - jax_mean) <= MEAN_REL_L2_TOL,
           f"mean rel-L2 {metrics['mean_rel_norm']:.6f} vs JAX {jax_mean:.6f}")
 
-    # 4. times
-    from pigs_tpu_torch.ops.mixture_kernel import (mixture_forward,
-                                                   mixture_forward_plain,
-                                                   pack_conics)
+    # 5. one training step against JAX f64
+    step_errs = {}
+    for impl in ("auto", "plain"):
+        loss_errs, grad_err, update_err, lw_err = train_step_phase(ti, impl)
+        step_errs[impl] = (loss_errs, grad_err, update_err)
+        print(f"[step] {'K1/K2' if impl == 'auto' else 'plain'}: loss terms "
+              "[pde, bc, cons, init, mag, total] rel err vs JAX f64 "
+              + " ".join(f"{e:.2e}" for e in loss_errs)
+              + f"; gradient {grad_err:.3e}; update {update_err:.3e}; "
+              f"loss weight abs {lw_err:.2e}", flush=True)
+    loss_errs, grad_err, update_err = step_errs["auto"]
+    check(max(loss_errs) <= STEP_LOSS_TOL,
+          f"pn_step loss terms {max(loss_errs):.3e} > {STEP_LOSS_TOL}")
+    check(grad_err <= STEP_GRAD_TOL,
+          f"pn_step gradient {grad_err:.3e} > {STEP_GRAD_TOL}")
+    check(update_err <= STEP_UPDATE_TOL,
+          f"pn_step update {update_err:.3e} > {STEP_UPDATE_TOL}")
+
+    # 6. the 20-step split-regime epoch, counted.  Launches: sampling the
+    # IC's fields, 2 K1 (order 2 at the collocation samples, order 0 at the
+    # boundary samples).  Each step: forward_step 1 K1 (order 2 at the
+    # means); sample_fields of the new state 2 K1, whose backward is 2 K2
+    # (the samples need no gradient: no K3); adaptive_split 3 K1 (density,
+    # value now, value before); sample_fields of the split state 2 K1.
+    ti.reset()
+    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    prev = ti.prev_fields(ti.cfg)
+    epoch = pn_epoch(ti.cfg, ti.network, ti.opt, ti.state, prev, ti.samples,
+                     ti.time_samples, ti.bc_samples, ti.base_lr, ti.epsilon,
+                     ti.dt, ti.n_steps, loss_weight_floor=ti.floor,
+                     do_split=True, clip_norm=ti.clip, skip_nonfinite=True)
+    torch.cuda.synchronize()
+    counts["epoch"] = (mk.launches, mk.bwd_gauss_launches,
+                       mk.bwd_sample_launches)
+    want_counts = (2 + 8 * ti.n_steps, 2 * ti.n_steps, 0)
+    print(f"[epoch] launches (K1, K2, K3) {counts['epoch']}, expected "
+          f"{want_counts}", flush=True)
+    check(counts["epoch"] == want_counts,
+          f"epoch launches {counts['epoch']} != {want_counts}")
+    per_step = epoch.per_step.cpu().numpy()
+    check(bool(np.isfinite(per_step).all()), "epoch losses not finite")
+    jax_steps = ti.data["epoch_per_step"]
+    diverged = [i for i in range(ti.n_steps)
+                if not np.array_equal(epoch.active[i].cpu().numpy(),
+                                      ti.data["epoch_active"][i])]
+    first = diverged[0] if diverged else None
+    upto = ti.n_steps if first is None else first + 1
+    total_errs = np.abs(per_step[:, 5] - jax_steps[:, 5]) / np.abs(
+        jax_steps[:, 5])
+    print("[epoch] per-step total rel err vs JAX f64: "
+          + " ".join(f"{e:.2e}" for e in total_errs), flush=True)
+    print("[epoch] active counts: "
+          + " ".join(str(int(a.sum())) for a in epoch.active.cpu()), flush=True)
+    print(f"[epoch] first step whose active mask differs from JAX's: "
+          f"{'none' if first is None else first}", flush=True)
+    check(float(total_errs[:upto].max()) <= EPOCH_TOTAL_TOL,
+          f"epoch totals vs JAX {float(total_errs[:upto].max()):.3e} > "
+          f"{EPOCH_TOTAL_TOL} before the split decisions diverge")
+
+    # 7. train() resumed from the fixture for 3 epochs, checkpoint, EMA rollout
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    ckpt_dir = os.path.join(SCRATCH, "resume")
+    epoch0 = int(ti.data["train_epoch"])
+    ti.reset()
+    save_checkpoint(ckpt_dir, epoch0, dict(ti.network.named_parameters()),
+                    ti.opt, [], ema=dict(zip(ti.names, ti.ema)))
+    tcfg = TrainConfig(
+        n_epochs=int(ti.data["train_n_epochs"]),
+        n_samples=int(ti.data["train_n_samples"]),
+        lr=float(ti.data["train_lr"]), lr_min=float(ti.data["train_lr_min"]),
+        dt=ti.dt, train_timesteps=int(ti.data["train_timesteps"]),
+        loss_weight_floor=ti.floor,
+        ema_decay=float(ti.data["train_ema_decay"]), clip_norm=ti.clip,
+        skip_nonfinite_updates=True, log_step=1)
+    log = []
+    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    t_train = time.perf_counter()
+    result = train(ti.cfg, tcfg, checkpoint_dir=ckpt_dir, resume=True,
+                   log_fn=log.append, device=dev)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t_train
+    counts["train"] = (mk.launches, mk.bwd_gauss_launches,
+                       mk.bwd_sample_launches)
+    for line in log:
+        print(f"  train: {line}", flush=True)
+    check(any("Resumed" in line for line in log), "train() did not resume")
+    check(len(result.training_loss) == 3 and all(
+        np.isfinite(result.training_loss)), "train() losses")
+    check(counts["train"][0] > 0 and counts["train"][1] > 0
+          and counts["train"][2] == 0,
+          f"train() launches (K1, K2, K3) {counts['train']}")
+    names = ti.names
+    save_checkpoint(ckpt_dir, tcfg.n_epochs,
+                    dict(result.network.named_parameters()), result.opt_state,
+                    result.training_loss, ema=dict(zip(names, result.ema)))
+    back = restore_checkpoint(ckpt_dir, dev)
+    same = (back.epoch == tcfg.n_epochs
+            and back.training_loss == [float(x) for x in result.training_loss]
+            and all(torch.equal(back.params[k], p)
+                    for k, p in result.network.named_parameters())
+            and all(torch.equal(a, b) for a, b in
+                    zip(back.opt.mu + back.opt.nu + [back.opt.count],
+                        result.opt_state.mu + result.opt_state.nu
+                        + [result.opt_state.count]))
+            and all(torch.equal(back.ema[k], e)
+                    for k, e in zip(names, result.ema)))
+    check(same, "checkpoint round trip changed values")
+    ema_net = make_network(cfg, frequencies=network.frequencies.cpu(),
+                           device=dev)
+    ema_net.load_state_dict(back.ema)
+    ema_frames = rollout_frames(cfg, ema_net, state0, steps, res, dt)
+    ema_metrics = rollout_metrics(ema_frames.cpu().numpy()[:, 0],
+                                  data["fd_frames"])
+    print(f"[train] 3 epochs in {t_train:.2f} s; launches (K1, K2, K3) "
+          f"{counts['train']}; checkpoint round trip equal; EMA rollout mean "
+          f"rel-L2 vs FD {ema_metrics['mean_rel_norm']:.6f} (JAX-CPU "
+          f"{jax_mean:.6f})", flush=True)
+    check(abs(ema_metrics["mean_rel_norm"] - jax_mean) <= MEAN_REL_L2_TOL,
+          f"EMA rollout mean rel-L2 {ema_metrics['mean_rel_norm']:.6f} vs "
+          f"{jax_mean:.6f}")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+
+    # 8. times
     ms, plain_ms = {}, {}
     with torch.inference_mode():
-        for label, (mu, con, val, smp, order, mask) in slice_inputs(
+        for label, (mu, con, val, smp, order, mask) in rollout_slice_inputs(
                 cfg, state0, res).items():
-            args = (mu.contiguous(), pack_conics(con).contiguous(),
+            args = (mu.contiguous(), mk.pack_conics(con).contiguous(),
                     (val * mask.to(val.dtype)[:, None]).contiguous(),
                     smp.contiguous(), order, cfg.period)
-            plain_ms[label] = median_ms(lambda: mixture_forward_plain(*args))
-            ms[label] = median_ms(lambda: mixture_forward(*args))
-            print(f"[times] {label}: K1 {ms[label]:.4f} ms, plain "
-                  f"{plain_ms[label]:.4f} ms (median of 20; {card})",
-                  flush=True)
+            plain_ms[("mixture_fwd", label)] = median_ms(
+                lambda: mk.mixture_forward_plain(*args))
+            ms[("mixture_fwd", label)] = median_ms(
+                lambda: mk.mixture_forward(*args))
+        v_int = (st.u * st.interior.float()[:, None]).contiguous()
+        packed = (st.means.contiguous(), mk.pack_conics(conics_t).contiguous(),
+                  v_int)
+        for label, (smp, order) in train_shapes.items():
+            cots = [torch.randn((smp.shape[0], gs), generator=gen).to(dev)
+                    for gs in (1, 2, 3, 4)[:order + 1]]
+            a = (*packed, smp.contiguous(), cots, order, None)
+            for name, kern, plain in (
+                    ("mixture_bwd_gauss", mk.mixture_backward_gauss,
+                     mk.mixture_backward_gauss_plain),
+                    ("mixture_bwd_sample", mk.mixture_backward_sample,
+                     mk.mixture_backward_sample_plain)):
+                plain_ms[(name, label)] = median_ms(lambda: plain(*a))
+                ms[(name, label)] = median_ms(lambda: kern(*a))
+    for (name, label), t in ms.items():
+        print(f"[times] {name} {label}: kernel {t:.4f} ms, plain "
+              f"{plain_ms[(name, label)]:.4f} ms (median of 20; {card})",
+              flush=True)
+
+    def one_step(impl):
+        from pigs_tpu_torch.train.pn import pn_step
+        c = ti.cfg._replace(mixture_impl=impl)
+        prev = ti.prev_fields(c)
+        return lambda: pn_step(c, ti.network, ti.opt, ti.state, prev,
+                               ti.samples, ti.time_samples, ti.bc_samples,
+                               torch.ones((), device=dev), ti.base_lr,
+                               ti.epsilon, 0.0, ti.dt, ti.floor, ti.clip, True)
+
+    def one_epoch(impl):
+        c = ti.cfg._replace(mixture_impl=impl)
+        prev = ti.prev_fields(c)
+        return lambda: pn_epoch(c, ti.network, ti.opt, ti.state, prev,
+                                ti.samples, ti.time_samples, ti.bc_samples,
+                                ti.base_lr, ti.epsilon, ti.dt, ti.n_steps,
+                                ti.floor, True, ti.clip, True)
+
+    step_ms, epoch_ms = {"auto": [], "plain": []}, {"auto": [], "plain": []}
+    for impl in ("plain", "auto", "auto", "plain"):
+        ti.reset()
+        fn = one_step(impl)
+        fn()
+        step_ms[impl] += [host_ms(fn) for _ in range(5)]
+        ti.reset()
+        epoch_ms[impl].append(host_ms(one_epoch(impl)))
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    emed = {k: statistics.median(v) for k, v in epoch_ms.items()}
+    print(f"[times] pn_step: K1/K2 {med['auto']:.2f} ms, plain "
+          f"{med['plain']:.2f} ms (median of 10, host clock with device "
+          f"syncs; {card})", flush=True)
+    print(f"[times] 20-step split-regime epoch: K1/K2 {emed['auto']:.2f} ms "
+          f"({emed['auto'] / ti.n_steps:.2f} ms per training step), plain "
+          f"{emed['plain']:.2f} ms (median of 2 each, order plain, K, K, "
+          f"plain; {card})", flush=True)
+
+    # A profile of 5 training steps: kernels per step and device idle share.
+    ti.reset()
+    fn = one_step("auto")
+    fn()
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(device_us(e) for e in events)
+    kernels = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -device_us(e))[:8]
+    print(f"[profile] 5 pn_steps: {kernels / 5:.0f} device ops per step, "
+          f"device busy {busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms wall "
+          f"(idle share {1 - busy / wall:.3f} under the profiler; {card})",
+          flush=True)
+    for e in top:
+        print(f"  {device_us(e) / 1e3 / 5:.4f} ms/step "
+              f"x{e.count // 5} {e.key[:90]}", flush=True)
+
     _, evo = rollout(cfg, network, n_steps=steps, res=res, dt=dt, device=dev)
     print(f"[times] rollout {steps} steps at {res}x{res}: {evo * 1e3:.2f} ms "
           f"({evo * 1e3 / steps:.3f} ms/step; {card})", flush=True)
 
-    return {"kernels": [{
-        "name": "mixture_fwd",
-        "route": "cuda",
-        "source": "pigs_tpu_torch/ops/csrc/mixture_fwd.cu",
-        "replaces": "pigs_tpu/ops/pallas_mixture.py:211",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": sum(ms.values()),
-        "plain_ms": sum(plain_ms.values()),
-        "ms_by_shape": ms,
-        "plain_ms_by_shape": plain_ms,
-        "rollout_ms": evo * 1e3,
-    }]}, card
+    def shapes_of(name, table):
+        return {label: t for (n, label), t in table.items() if n == name}
+
+    def launches_of(i):
+        return {path: c[i] for path, c in counts.items()}
+
+    kernels = []
+    for i, (name, replaces, max_abs) in enumerate((
+            ("mixture_fwd", "pigs_tpu/ops/pallas_mixture.py:211", k1_abs),
+            ("mixture_bwd_gauss", "pigs_tpu/ops/pallas_mixture.py:313",
+             bwd_abs),
+            ("mixture_bwd_sample", "pigs_tpu/ops/pallas_mixture.py:364",
+             bwd_abs))):
+        by_shape, plain_by_shape = shapes_of(name, ms), shapes_of(name, plain_ms)
+        source = ("pigs_tpu_torch/ops/csrc/mixture_fwd.cu" if i == 0 else
+                  "pigs_tpu_torch/ops/csrc/mixture_bwd.cu")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(launches_of(i).values()),
+            "launches_by_path": launches_of(i),
+            "on_main_path": i < 2,
+            "max_abs_err": max_abs,
+            "ms": sum(by_shape.values()),
+            "plain_ms": sum(plain_by_shape.values()),
+            "ms_by_shape": by_shape, "plain_ms_by_shape": plain_by_shape,
+        })
+    return {"kernels": kernels,
+            "pn_step_ms": med, "epoch_ms": emed, "rollout_ms": evo * 1e3,
+            "ema_rollout_mean_rel_l2": ema_metrics["mean_rel_norm"],
+            "epoch_first_mask_divergence": first}, card
 
 
 def main() -> int:

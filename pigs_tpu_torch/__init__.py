@@ -5,14 +5,18 @@ layouts, so each function here has a counterpart there of the same name and
 the parity tests compare like with like.  The package imports ``torch`` and
 numpy only; the JAX package is the reference it is tested against.
 
-Layer map (the first slice: the PN rollout of a trained model):
+Layer map (the slices so far: PN training and rollout of the Burgers
+flagship):
 
-  ops       mixture evaluation (CUDA kernel K1 + its plain twin), dense oracle,
-            neighbour aggregation (plain torch matmuls)
-  gaussians covariance / conic construction
-  models    padded mixture state, dynamics network, forward step
-  train     rollout and its metrics
-  convert   flax parameter trees -> torch state dicts
+  ops       mixture evaluation (CUDA kernels K1 forward, K2/K3 backward, and
+            their plain twins), dense oracle, neighbour aggregation (plain
+            torch matmuls)
+  gaussians covariance / conic construction, 2x2 eigen-decomposition
+  models    padded mixture state with prune/split, dynamics network, forward
+            step, sampling, losses, adaptive split, randomized ICs
+  train     training (optax-style Adam, epochs, curriculum, EMA,
+            checkpoints), rollout and its metrics
+  convert   flax parameter trees and optax Adam states -> torch
 """
 
 from pigs_tpu_torch.pde import IntegrationRule, Problem, pde_rhs

@@ -1,4 +1,5 @@
-"""Flax parameter trees <-> torch state dicts for the dynamics network.
+"""Flax parameter trees <-> torch state dicts for the dynamics network, and
+optax Adam states <-> :class:`pigs_tpu_torch.train.optim.AdamState`.
 
 A flax tree is handed over flat: its paths joined with ``/`` as keys (for
 example ``params/query_0/Dense_1/kernel``) and numpy arrays as values, the
@@ -11,18 +12,23 @@ form ``scripts/export_torch_fixture.py`` writes.  The name map:
   .../kernel (in, out)                            .../weight (out, in), transposed
   .../bias                                        .../bias
   params/{transform,distance_transform}_h         the same name, raw (U[0, 2))
+
+optax's ``ScaleByAdamState`` keeps ``mu`` and ``nu`` as trees shaped like
+the params, so they go through the same map (kernels transposed); its
+``count`` is the step count.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["flax_to_torch_name", "torch_to_flax_name", "params_from_flax",
-           "params_to_flax", "load_fixture"]
+           "params_to_flax", "adam_from_flax", "adam_to_flax", "load_fixture",
+           "load_train_fixture"]
 
 _RAW = re.compile(r"^(distance_transform|transform)_(\d+)$")
 
@@ -92,6 +98,70 @@ def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             arr = arr.T
         state[flax_to_torch_name(path)] = torch.tensor(arr)
     return state
+
+
+def adam_from_flax(names: Sequence[str], mu: Dict[str, np.ndarray],
+                   nu: Dict[str, np.ndarray], count, device=None):
+    """optax Adam moments (flat flax trees, as :func:`params_from_flax`
+    takes them) and count -> an ``AdamState`` whose lists follow
+    ``names``, the network's ``named_parameters()`` order."""
+    from pigs_tpu_torch.train.optim import AdamState
+    tmu, tnu = params_from_flax(mu), params_from_flax(nu)
+    return AdamState(
+        mu=[tmu[k].to(device) for k in names],
+        nu=[tnu[k].to(device) for k in names],
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                           device=device))
+
+
+def adam_to_flax(names: Sequence[str], state
+                 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], int]:
+    """Inverse of :func:`adam_from_flax`: ``(mu, nu, count)``."""
+    return (params_to_flax(dict(zip(names, state.mu))),
+            params_to_flax(dict(zip(names, state.nu))), int(state.count))
+
+
+def _subtree(data: dict, prefix: str) -> Dict[str, np.ndarray]:
+    """Pop the arrays stored under ``prefix/`` as a flat flax params tree
+    (``params/...`` keys)."""
+    keys = [k for k in data if k.startswith(prefix + "/")]
+    return {"params/" + k[len(prefix) + 1:]: data.pop(k) for k in keys}
+
+
+def load_train_fixture(path: str, device=None, dtype=torch.float32):
+    """Load an exported training fixture
+    (``scripts/export_torch_fixture.py --kind train``).
+
+    Returns ``(cfg, network, opt_state, ema, data)``: the model config in
+    ``dtype``, the network with the checkpoint's raw parameters, its Adam
+    state, the EMA parameters (a list in ``network.parameters()`` order),
+    all on ``device``, and the file's remaining arrays as numpy (the epoch's
+    inputs under ``input_*``, the JAX references under ``step_*`` and
+    ``epoch_*``, ``train_*`` the training recipe).
+    """
+    from pigs_tpu_torch.models.model import ModelConfig, make_network
+    from pigs_tpu_torch.pde import IntegrationRule, Problem
+
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    raw = {k: data.pop(k) for k in list(data) if k.startswith("params/")}
+    ema, mu, nu = (_subtree(data, p) for p in ("ema", "adam_mu", "adam_nu"))
+    nx = int(data["config_nx"])
+    cfg = ModelConfig.create(Problem[str(data["config_problem"])],
+                             IntegrationRule.TRAPEZOID, nx=nx, ny=nx, d=2,
+                             scale=1.0, capacity=int(data["config_capacity"]),
+                             dtype=dtype)
+    network = make_network(cfg, frequencies=torch.from_numpy(
+        data["frequencies"]), device=device)
+    network.load_state_dict({k: v.to(dtype) for k, v in
+                             params_from_flax(raw).items()})
+    names = [k for k, _ in network.named_parameters()]
+    opt = adam_from_flax(names, mu, nu, data.pop("adam_count"), device)
+    opt = opt._replace(mu=[x.to(dtype) for x in opt.mu],
+                       nu=[x.to(dtype) for x in opt.nu])
+    tema = params_from_flax(ema)
+    return (cfg, network, opt, [tema[k].to(device=device, dtype=dtype)
+                                for k in names], data)
 
 
 def load_fixture(path: str, device=None):

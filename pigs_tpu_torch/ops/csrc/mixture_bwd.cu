@@ -1,0 +1,511 @@
+// K2 and K3: the backward of the fused 2D mixture forward (K1).
+//
+// K2 replaces pigs_tpu/ops/pallas_mixture.py::_bwd_gauss_kernel and K3
+// replaces ::_bwd_sample_kernel (both launched by _pallas_backward).  Given
+// the packed cotangents of K1's outputs (cot_k for the K = 1, 3, 6 or 10
+// components up to ORDER, column k*C + ch of each group), every pair
+// (sample j, Gaussian i) contributes the hand-derived adjoint fields of
+// pallas_mixture.py::_adjoint_fields, with r_k(j, i) = sum_ch cot_k[j, ch] *
+// v[i, ch]:
+//   E_dx, E_dy               d(pair term)/d(delta)
+//   E_cxx, E_cxy, E_cyy      d(pair term)/d(packed conic)
+//   A g = sum_k r_k W_k      the pair term itself
+// K2 sums them over samples (column sums): gm = -sum_j (E_dx, E_dy),
+// gc = sum_j (E_cxx, E_cxy, E_cyy), gv[ch] = sum_j sum_k cot_k[j, ch] W_k.
+// K3 sums E_dx, E_dy over Gaussians (row sums): gx.  The packed cxy stands
+// for both off-diagonal entries, so gc's middle column is the gradient of
+// that one number.
+//
+// What bounds them on an H100: per pair one exp and 30-120 FMAs, no loads
+// from device memory (the staged tile sits in shared memory and every thread
+// of a block reads the same word, a broadcast).  Like K1 they are bound by
+// the exp and FMA instruction rate, not by bytes.
+//
+// K2 design: one thread per Gaussian keeps mu, C and v in registers and its
+// 5 + C gradient sums in registers.  A block of 128 Gaussians stages tiles
+// of 128 samples (positions and that tile's K*C cotangents) through shared
+// memory; a tile is summed plainly and added into the running totals with
+// Kahan compensation, as the TPU kernel does across sample tiles.  A
+// training call has only n = 1664 Gaussians, 13 blocks for 132 SMs, so the
+// sample axis is also split over blockIdx.y into `slices`: each block writes
+// its slice's sums to a (slices, n, 5 + C) buffer and a second small kernel
+// sums the slices in a fixed order (Kahan again).  No atomics: the result is
+// deterministic.  C = 1 takes the rank-1 route of the TPU kernel: r_k is the
+// cotangent itself, the value factor multiplies gm and gc once at the end,
+// and gv = sum_j A g.
+//
+// K3 design: K1's layout.  One thread per sample holds its K*C cotangents in
+// registers; Gaussians are staged through shared memory in tiles of 128;
+// Kahan across tiles; gx(2) in registers.  C = 1 folds v into g.
+//
+// The TPU design's transposed (comp, n) tiles and the cotangent split done
+// outside the kernel exist for Mosaic and are not carried over.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;  // Gaussians (K2) or samples (K3) per block
+constexpr int kTile = 128;     // samples (K2) or Gaussians (K3) per tile
+
+template <int ORDER>
+struct Comps {
+  // Number of packed components up to ORDER: 1, 3, 6, 10.
+  static constexpr int value = (ORDER + 1) * (ORDER + 2) / 2;
+};
+
+// First packed component of each derivative group.
+__host__ __device__ constexpr int group_offset(int group) {
+  return group * (group + 1) / 2;
+}
+
+struct Pair {
+  float dx, dy, px, py, g;
+};
+
+__device__ __forceinline__ Pair pair_geometry(float x, float y, float mx,
+                                              float my, float cxx, float cxy,
+                                              float cyy, int periodic,
+                                              float period, float inv_period) {
+  Pair q;
+  q.dx = x - mx;
+  q.dy = y - my;
+  if (periodic) {
+    // rintf rounds half to even, as jnp.round does.
+    q.dx = q.dx - period * rintf(q.dx * inv_period);
+    q.dy = q.dy - period * rintf(q.dy * inv_period);
+  }
+  q.px = cxx * q.dx + cxy * q.dy;
+  q.py = cxy * q.dx + cyy * q.dy;
+  q.g = expf(-0.5f * (q.dx * q.px + q.dy * q.py));
+  return q;
+}
+
+// The packed output weights W_k = P_k(p, C) * g of K1, in output order.
+template <int ORDER>
+__device__ __forceinline__ void pair_weights(const Pair& q, float cxx,
+                                             float cxy, float cyy, float* w) {
+  const float px = q.px, py = q.py, g = q.g;
+  w[0] = g;
+  if constexpr (ORDER >= 1) {
+    w[1] = -px * g;
+    w[2] = -py * g;
+  }
+  if constexpr (ORDER >= 2) {
+    w[3] = (px * px - cxx) * g;
+    w[4] = (px * py - cxy) * g;
+    w[5] = (py * py - cyy) * g;
+  }
+  if constexpr (ORDER >= 3) {
+    w[6] = (3.0f * cxx * px - px * px * px) * g;
+    w[7] = (cxx * py + 2.0f * cxy * px - px * px * py) * g;
+    w[8] = (cyy * px + 2.0f * cxy * py - px * py * py) * g;
+    w[9] = (3.0f * cyy * py - py * py * py) * g;
+  }
+}
+
+struct Adjoint {
+  float edx, edy, ecxx, ecxy, ecyy, ag;
+};
+
+// pallas_mixture.py::_adjoint_fields, term for term.
+template <int ORDER>
+__device__ __forceinline__ Adjoint adjoint_fields(const Pair& q, float cxx,
+                                                  float cxy, float cyy,
+                                                  const float* r) {
+  const float dx = q.dx, dy = q.dy, px = q.px, py = q.py, g = q.g;
+  float A = r[0], Q = 0.0f, R = 0.0f;
+  float Dxx = 0.0f, Dxy = 0.0f, Dyy = 0.0f;
+  if constexpr (ORDER >= 1) {
+    Q = Q - r[1];
+    R = R - r[2];
+    A = A - px * r[1] - py * r[2];
+  }
+  if constexpr (ORDER >= 2) {
+    const float rxx = r[3], rxy = r[4], ryy = r[5];
+    Q = Q + 2.0f * px * rxx + py * rxy;
+    R = R + px * rxy + 2.0f * py * ryy;
+    A = A + ((px * px - cxx) * rxx + (px * py - cxy) * rxy +
+             (py * py - cyy) * ryy);
+    Dxx = Dxx - rxx;
+    Dxy = Dxy - rxy;
+    Dyy = Dyy - ryy;
+  }
+  if constexpr (ORDER >= 3) {
+    const float rxxx = r[6], rxxy = r[7], rxyy = r[8], ryyy = r[9];
+    Q = Q + ((3.0f * cxx - 3.0f * px * px) * rxxx +
+             (2.0f * cxy - 2.0f * px * py) * rxxy + (cyy - py * py) * rxyy);
+    R = R + ((cxx - px * px) * rxxy + (2.0f * cxy - 2.0f * px * py) * rxyy +
+             (3.0f * cyy - 3.0f * py * py) * ryyy);
+    A = A + ((3.0f * cxx * px - px * px * px) * rxxx +
+             (cxx * py + 2.0f * cxy * px - px * px * py) * rxxy +
+             (cyy * px + 2.0f * cxy * py - px * py * py) * rxyy +
+             (3.0f * cyy * py - py * py * py) * ryyy);
+    Dxx = Dxx + 3.0f * px * rxxx + py * rxxy;
+    Dxy = Dxy + 2.0f * px * rxxy + 2.0f * py * rxyy;
+    Dyy = Dyy + px * rxyy + 3.0f * py * ryyy;
+  }
+  Adjoint e;
+  e.edx = g * (Q * cxx + R * cxy - A * px);
+  e.edy = g * (Q * cxy + R * cyy - A * py);
+  e.ecxx = g * (Q * dx + Dxx - 0.5f * A * dx * dx);
+  e.ecxy = g * (Q * dy + R * dx + Dxy - A * dx * dy);
+  e.ecyy = g * (R * dy + Dyy - 0.5f * A * dy * dy);
+  e.ag = A * g;
+  return e;
+}
+
+__device__ __forceinline__ void kahan_add(float& total, float& carry,
+                                          float inc) {
+  const float y = inc - carry;
+  const float t = total + y;
+  carry = (t - total) - y;
+  total = t;
+}
+
+// Read packed component `comp` (channel ch) of sample j from the group
+// buffers cot0..cot3, whose rows are (G * C) wide.
+template <int C>
+__device__ __forceinline__ float cot_at(const float* const* cots, int comp,
+                                        int ch, int j) {
+  const int group = comp >= 6 ? 3 : (comp >= 3 ? 2 : (comp >= 1 ? 1 : 0));
+  const int k = comp - group_offset(group);
+  return cots[group][(size_t)j * (group + 1) * C + k * C + ch];
+}
+
+struct Cots {
+  const float* p[4];
+};
+
+// ------------------------------------------------------------------ K2 ----
+
+template <int ORDER, int C>
+__global__ void __launch_bounds__(kThreads) bwd_gauss_partial_kernel(
+    const float* __restrict__ samples,  // (m, 2)
+    const float* __restrict__ means,    // (n, 2)
+    const float* __restrict__ conics,   // (n, 3) packed [cxx, cxy, cyy]
+    const float* __restrict__ values,   // (n, C), mask folded in
+    Cots cots, int m, int n, int slice_len, int periodic, float period,
+    float inv_period,
+    float* __restrict__ partials) {     // (slices, n, 5 + C)
+  constexpr int K = Comps<ORDER>::value;
+  constexpr int W = 5 + C;
+
+  __shared__ float s_x[kTile];
+  __shared__ float s_y[kTile];
+  __shared__ float s_cot[K * C][kTile];
+
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = i < n;
+  const float mx = live ? means[2 * i] : 0.0f;
+  const float my = live ? means[2 * i + 1] : 0.0f;
+  const float cxx = live ? conics[3 * i] : 1.0f;
+  const float cxy = live ? conics[3 * i + 1] : 0.0f;
+  const float cyy = live ? conics[3 * i + 2] : 1.0f;
+  float v[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) v[ch] = live ? values[i * C + ch] : 0.0f;
+
+  float total[W], carry[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    total[k] = 0.0f;
+    carry[k] = 0.0f;
+  }
+
+  const int begin = blockIdx.y * slice_len;
+  const int end = min(m, begin + slice_len);
+  for (int base = begin; base < end; base += kTile) {
+    const int len = min(kTile, end - base);
+    __syncthreads();  // every thread is done with the previous tile
+    for (int t = threadIdx.x; t < len; t += kThreads) {
+      const int j = base + t;
+      s_x[t] = samples[2 * j];
+      s_y[t] = samples[2 * j + 1];
+#pragma unroll
+      for (int comp = 0; comp < K; ++comp) {
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch)
+          s_cot[comp * C + ch][t] = cot_at<C>(cots.p, comp, ch, j);
+      }
+    }
+    __syncthreads();
+
+    float part[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) part[k] = 0.0f;
+
+#pragma unroll 2
+    for (int t = 0; t < len; ++t) {
+      const Pair q = pair_geometry(s_x[t], s_y[t], mx, my, cxx, cxy, cyy,
+                                   periodic, period, inv_period);
+      float r[K];
+      if constexpr (C == 1) {
+        // Rank-1 route: r_k = cot_k (the value factor is applied at the end).
+#pragma unroll
+        for (int k = 0; k < K; ++k) r[k] = s_cot[k][t];
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch)
+            acc = fmaf(s_cot[k * C + ch][t], v[ch], acc);
+          r[k] = acc;
+        }
+      }
+      const Adjoint e = adjoint_fields<ORDER>(q, cxx, cxy, cyy, r);
+      part[0] -= e.edx;
+      part[1] -= e.edy;
+      part[2] += e.ecxx;
+      part[3] += e.ecxy;
+      part[4] += e.ecyy;
+      if constexpr (C == 1) {
+        part[5] += e.ag;
+      } else {
+        float w[K];
+        pair_weights<ORDER>(q, cxx, cxy, cyy, w);
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) {
+          float acc = part[5 + ch];
+#pragma unroll
+          for (int k = 0; k < K; ++k) acc = fmaf(s_cot[k * C + ch][t], w[k], acc);
+          part[5 + ch] = acc;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) kahan_add(total[k], carry[k], part[k]);
+  }
+
+  if (!live) return;
+  float* out = partials + ((size_t)blockIdx.y * n + i) * W;
+  if constexpr (C == 1) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) out[k] = total[k] * v[0];
+    out[5] = total[5];
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k) out[k] = total[k];
+  }
+}
+
+// Sum the slices' partials in a fixed order: out[e] = sum_s partials[s, e].
+__global__ void __launch_bounds__(256) reduce_slices_kernel(
+    const float* __restrict__ partials, int slices, int count,
+    float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  float total = 0.0f, carry = 0.0f;
+  for (int s = 0; s < slices; ++s)
+    kahan_add(total, carry, partials[(size_t)s * count + e]);
+  out[e] = total;
+}
+
+// ------------------------------------------------------------------ K3 ----
+
+template <int ORDER, int C>
+__global__ void __launch_bounds__(kThreads) bwd_sample_kernel(
+    const float* __restrict__ samples, const float* __restrict__ means,
+    const float* __restrict__ conics, const float* __restrict__ values,
+    Cots cots, int m, int n, int periodic, float period, float inv_period,
+    float* __restrict__ gx) {           // (m, 2)
+  constexpr int K = Comps<ORDER>::value;
+
+  __shared__ float s_mx[kTile];
+  __shared__ float s_my[kTile];
+  __shared__ float s_cxx[kTile];
+  __shared__ float s_cxy[kTile];
+  __shared__ float s_cyy[kTile];
+  __shared__ float s_v[C][kTile];
+
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = j < m;
+  const float x = live ? samples[2 * j] : 0.0f;
+  const float y = live ? samples[2 * j + 1] : 0.0f;
+  float cot[K * C];
+#pragma unroll
+  for (int comp = 0; comp < K; ++comp) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+      cot[comp * C + ch] = live ? cot_at<C>(cots.p, comp, ch, j) : 0.0f;
+  }
+
+  float total[2] = {0.0f, 0.0f}, carry[2] = {0.0f, 0.0f};
+  for (int base = 0; base < n; base += kTile) {
+    const int len = min(kTile, n - base);
+    __syncthreads();
+    for (int t = threadIdx.x; t < len; t += kThreads) {
+      const int i = base + t;
+      s_mx[t] = means[2 * i];
+      s_my[t] = means[2 * i + 1];
+      s_cxx[t] = conics[3 * i];
+      s_cxy[t] = conics[3 * i + 1];
+      s_cyy[t] = conics[3 * i + 2];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) s_v[ch][t] = values[i * C + ch];
+    }
+    __syncthreads();
+
+    float part[2] = {0.0f, 0.0f};
+#pragma unroll 2
+    for (int t = 0; t < len; ++t) {
+      const float cxx = s_cxx[t], cxy = s_cxy[t], cyy = s_cyy[t];
+      Pair q = pair_geometry(x, y, s_mx[t], s_my[t], cxx, cxy, cyy, periodic,
+                             period, inv_period);
+      float r[K];
+      if constexpr (C == 1) {
+        q.g *= s_v[0][t];  // rank-1 route: fold v into g
+#pragma unroll
+        for (int k = 0; k < K; ++k) r[k] = cot[k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) acc = fmaf(cot[k * C + ch], s_v[ch][t], acc);
+          r[k] = acc;
+        }
+      }
+      const Adjoint e = adjoint_fields<ORDER>(q, cxx, cxy, cyy, r);
+      part[0] += e.edx;
+      part[1] += e.edy;
+    }
+    kahan_add(total[0], carry[0], part[0]);
+    kahan_add(total[1], carry[1], part[1]);
+  }
+  if (!live) return;
+  gx[2 * j] = total[0];
+  gx[2 * j + 1] = total[1];
+}
+
+// ------------------------------------------------------------ dispatch ----
+
+struct Args {
+  const float *samples, *means, *conics, *values;
+  Cots cots;
+  int m, n, slices, slice_len, periodic;
+  float period, inv_period;
+  float *partials, *out;
+  cudaStream_t stream;
+};
+
+template <int ORDER, int C>
+cudaError_t launch_gauss(const Args& a) {
+  const dim3 grid((a.n + kThreads - 1) / kThreads, a.slices);
+  bwd_gauss_partial_kernel<ORDER, C><<<grid, kThreads, 0, a.stream>>>(
+      a.samples, a.means, a.conics, a.values, a.cots, a.m, a.n, a.slice_len,
+      a.periodic, a.period, a.inv_period, a.partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int count = a.n * (5 + C);
+  reduce_slices_kernel<<<(count + 255) / 256, 256, 0, a.stream>>>(
+      a.partials, a.slices, count, a.out);
+  return cudaGetLastError();
+}
+
+template <int ORDER, int C>
+cudaError_t launch_sample(const Args& a) {
+  const dim3 grid((a.m + kThreads - 1) / kThreads);
+  bwd_sample_kernel<ORDER, C><<<grid, kThreads, 0, a.stream>>>(
+      a.samples, a.means, a.conics, a.values, a.cots, a.m, a.n, a.periodic,
+      a.period, a.inv_period, a.out);
+  return cudaGetLastError();
+}
+
+template <template <int, int> class Launch>
+cudaError_t dispatch(int order, int c, const Args& a) {
+  switch (c * 10 + order) {
+    case 10: return Launch<0, 1>::run(a);
+    case 11: return Launch<1, 1>::run(a);
+    case 12: return Launch<2, 1>::run(a);
+    case 13: return Launch<3, 1>::run(a);
+    case 20: return Launch<0, 2>::run(a);
+    case 21: return Launch<1, 2>::run(a);
+    case 22: return Launch<2, 2>::run(a);
+    case 23: return Launch<3, 2>::run(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int ORDER, int C>
+struct GaussLaunch {
+  static cudaError_t run(const Args& a) { return launch_gauss<ORDER, C>(a); }
+};
+
+template <int ORDER, int C>
+struct SampleLaunch {
+  static cudaError_t run(const Args& a) { return launch_sample<ORDER, C>(a); }
+};
+
+Args make_args(const void* samples, const void* means, const void* conics,
+               const void* values, const void* cot0, const void* cot1,
+               const void* cot2, const void* cot3, int m, int n, int periodic,
+               float period, void* stream) {
+  Args a;
+  a.samples = static_cast<const float*>(samples);
+  a.means = static_cast<const float*>(means);
+  a.conics = static_cast<const float*>(conics);
+  a.values = static_cast<const float*>(values);
+  a.cots.p[0] = static_cast<const float*>(cot0);
+  a.cots.p[1] = static_cast<const float*>(cot1);
+  a.cots.p[2] = static_cast<const float*>(cot2);
+  a.cots.p[3] = static_cast<const float*>(cot3);
+  a.m = m;
+  a.n = n;
+  a.slices = 1;
+  a.slice_len = m;
+  a.periodic = periodic;
+  a.period = period;
+  a.inv_period = periodic ? 1.0f / period : 0.0f;
+  a.partials = nullptr;
+  a.out = nullptr;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  Each launches on `stream`
+// without synchronising and returns the launches' cudaGetLastError() (0 on
+// success).  cot0..cot3 are the packed cotangents (m, C), (m, 2C), (m, 3C),
+// (m, 4C); those past `order` may be null.  `period` is read only when
+// `periodic` is non-zero.
+
+// K2: out (n, 5 + C) = [gm_x, gm_y, gc_xx, gc_xy, gc_yy, gv_0..gv_C-1];
+// partials is scratch of (slices, n, 5 + C) floats, the sample axis cut into
+// `slices` runs of `slice_len` samples.
+extern "C" int pigs_mixture_bwd_gauss(int order, int c, const void* samples,
+                                      const void* means, const void* conics,
+                                      const void* values, const void* cot0,
+                                      const void* cot1, const void* cot2,
+                                      const void* cot3, int m, int n,
+                                      int slices, int slice_len, int periodic,
+                                      float period, void* partials, void* out,
+                                      void* stream) {
+  if (n == 0) return 0;
+  if (slices < 1 || (long long)slices * slice_len < m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(samples, means, conics, values, cot0, cot1, cot2, cot3,
+                     m, n, periodic, period, stream);
+  a.slices = slices;
+  a.slice_len = slice_len;
+  a.partials = static_cast<float*>(partials);
+  a.out = static_cast<float*>(out);
+  return static_cast<int>(dispatch<GaussLaunch>(order, c, a));
+}
+
+// K3: gx (m, 2).
+extern "C" int pigs_mixture_bwd_sample(int order, int c, const void* samples,
+                                       const void* means, const void* conics,
+                                       const void* values, const void* cot0,
+                                       const void* cot1, const void* cot2,
+                                       const void* cot3, int m, int n,
+                                       int periodic, float period, void* gx,
+                                       void* stream) {
+  if (m == 0) return 0;
+  Args a = make_args(samples, means, conics, values, cot0, cot1, cot2, cot3,
+                     m, n, periodic, period, stream);
+  a.out = static_cast<float*>(gx);
+  return static_cast<int>(dispatch<SampleLaunch>(order, c, a));
+}

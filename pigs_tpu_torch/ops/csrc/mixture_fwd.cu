@@ -39,7 +39,7 @@ constexpr int kTileN = 128;    // Gaussians per shared-memory tile
 template <int ORDER>
 struct Comps {
   // Number of packed components up to ORDER: 1, 3, 6, 10.
-  static constexpr int value = (ORDER + 1) * (ORDER + 2) * (ORDER + 3) / 6;
+  static constexpr int value = (ORDER + 1) * (ORDER + 2) / 2;
 };
 
 template <int ORDER, int C>

@@ -2,10 +2,12 @@
 
 ``impl="auto"``: d in {1, 2} goes through the fused K1 wrapper, which
 launches the CUDA kernel on CUDA tensors and runs its plain twin on CPU
-tensors; d=1 is embedded in d=2.  Other d go to the blockwise plain path on
-the CPU.  On CUDA, anything the kernel does not take (not float32, d=3)
-raises unless the caller asks for ``impl="plain"``, the blockwise path
-chunked over samples, which runs anywhere.
+tensors; d=1 is embedded in d=2.  Its gradients run K2 (and K3 when the
+samples require grad) on CUDA and their plain twins on the CPU.  Other d go
+to the blockwise plain path on the CPU.  On CUDA, anything the kernel does
+not take (not float32, d=3) raises unless the caller asks for
+``impl="plain"``, the blockwise path chunked over samples, which runs
+anywhere and is differentiated by torch autograd through the dense oracle.
 """
 
 from __future__ import annotations
@@ -50,11 +52,16 @@ def eval_mixture(
     period: Optional[float] = None,
     sample_chunk: int = 1024,
     impl: str = "auto",
+    diff_samples: bool = True,
 ) -> MixtureFields:
     """Evaluate a Gaussian mixture field and its derivatives up to ``order``.
 
     Same contract as :func:`pigs_tpu_torch.ops.oracle.eval_mixture_dense`:
     full ``(n, d, d)`` conics, fields in the oracle's full layouts.
+
+    ``diff_samples`` is kept for parity with the JAX signature and changes
+    nothing: whether the sample-side backward (K3) runs follows from
+    ``samples.requires_grad``.
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")

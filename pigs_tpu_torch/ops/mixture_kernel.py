@@ -1,58 +1,123 @@
-"""K1, the fused 2D mixture forward: the CUDA kernel and its plain twin.
+"""The fused 2D mixture and its backward: CUDA kernels K1-K3 and their plain
+twins.
 
-Replaces ``pigs_tpu/ops/pallas_mixture.py::_fwd_kernel``.  Inputs are
-``samples (m, 2)``, ``means (n, 2)``, packed conics ``(n, 3)`` =
-``[cxx, cxy, cyy]`` and ``values (n, c)`` with any mask already folded in;
-the outputs are the packed fields ``(m, c)``, ``(m, 2c)``, ``(m, 3c)``,
-``(m, 4c)`` up to ``order`` (see ``csrc/mixture_fwd.cu``).
+* K1 (``csrc/mixture_fwd.cu``) replaces
+  ``pigs_tpu/ops/pallas_mixture.py::_fwd_kernel``.  Inputs are
+  ``samples (m, 2)``, ``means (n, 2)``, packed conics ``(n, 3)`` =
+  ``[cxx, cxy, cyy]`` and ``values (n, c)`` with any mask already folded in;
+  the outputs are the packed fields ``(m, c)``, ``(m, 2c)``, ``(m, 3c)``,
+  ``(m, 4c)`` up to ``order``.
+* K2 (``csrc/mixture_bwd.cu``) replaces ``_bwd_gauss_kernel``: from the
+  packed cotangents of those outputs, the gradients of the means ``(n, 2)``,
+  the packed conics ``(n, 3)`` and the values ``(n, c)``.
+* K3 (same file) replaces ``_bwd_sample_kernel``: the gradient of the
+  samples ``(m, 2)``.
 
-:func:`mixture_forward` launches the kernel on CUDA tensors and runs the
-plain twin :func:`mixture_forward_plain` on CPU tensors; anything else raises.
-``launches`` counts the kernel's launches and nothing else.
+:func:`mixture_forward` is differentiable through :class:`_MixtureForward`.
+On CUDA tensors its forward launches K1 and its backward K2 (when means,
+conics or values need a gradient) and K3 (only when the samples need one,
+PyTorch's form of the JAX package's ``diff_samples``).  On CPU tensors the
+same Function runs the plain twins, :func:`mixture_forward_plain`,
+:func:`mixture_backward_gauss_plain` and :func:`mixture_backward_sample_plain`,
+which compute the same hand-derived adjoint.  Anything else raises.  The
+backward is first order only (``once_differentiable``): a second-order
+request raises.
+
+``launches``, ``bwd_gauss_launches`` and ``bwd_sample_launches`` count the
+kernels' launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from pigs_tpu_torch.ops.oracle import MixtureFields
 
-__all__ = ["mixture_forward", "mixture_forward_plain", "eval_mixture_fused",
-           "pack_conics", "unpack_fields", "build", "launches"]
+__all__ = ["mixture_forward", "mixture_forward_plain",
+           "mixture_backward_gauss", "mixture_backward_gauss_plain",
+           "mixture_backward_sample", "mixture_backward_sample_plain",
+           "eval_mixture_fused", "pack_conics", "unpack_fields", "build",
+           "launches", "bwd_gauss_launches", "bwd_sample_launches"]
 
 GROUP_SIZES = (1, 2, 3, 4)   # packed components per derivative order
-SOURCES = ("mixture_fwd.cu",)
+FWD_SOURCES = ("mixture_fwd.cu",)
+BWD_SOURCES = ("mixture_bwd.cu",)
+BWD_THREADS = 128            # Gaussians per K2 block, samples per K2 tile
 
-# Number of times the CUDA kernel was launched in this process.
-launches = 0
+# Number of times each CUDA kernel was launched in this process.
+launches = 0             # K1
+bwd_gauss_launches = 0   # K2
+bwd_sample_launches = 0  # K3
 
 
 def build():
-    """Build (or load the cached build of) K1; returns its ``BuildInfo``."""
-    return _library()[1]
+    """Build (or load the cached builds of) K1 and K2/K3, one ``nvcc`` per
+    source, both at once; returns their ``BuildInfo``s as
+    ``{"mixture_fwd": ..., "mixture_bwd": ...}``."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        fwd, bwd = pool.submit(_fwd_library), pool.submit(_bwd_library)
+        return {"mixture_fwd": fwd.result()[1],
+                "mixture_bwd": bwd.result()[1]}
+
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
+def _fwd_library():
     from pigs_tpu_torch.ops._build import load_library
-    lib, info = load_library("mixture_fwd", SOURCES)
+    lib, info = load_library("mixture_fwd", FWD_SOURCES)
     fn = lib.pigs_mixture_fwd
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn.argtypes = [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                   ctypes.c_float, _PTR, _PTR, _PTR, _PTR, _PTR]
+    fn.restype = _INT
     return lib, info
 
 
-def _weights(dx, dy, px, py, g, cxx, cxy, cyy, order: int):
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    from pigs_tpu_torch.ops._build import load_library
+    lib, info = load_library("mixture_bwd", BWD_SOURCES)
+    gauss = lib.pigs_mixture_bwd_gauss
+    gauss.argtypes = [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                      _PTR, _INT, _INT, _INT, _INT, _INT, ctypes.c_float,
+                      _PTR, _PTR, _PTR]
+    gauss.restype = _INT
+    sample = lib.pigs_mixture_bwd_sample
+    sample.argtypes = [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                       _PTR, _INT, _INT, _INT, ctypes.c_float, _PTR, _PTR]
+    sample.restype = _INT
+    return lib, info
+
+
+# ------------------------------------------------------------ plain twins ----
+
+
+def _geometry(smp, means, conics_packed, period):
+    """Per-pair displacements, p = C delta and the density for a sample chunk:
+    each ``(chunk, n)``; the conic entries broadcast as ``(1, n)``."""
+    cxx, cxy, cyy = (conics_packed[None, :, k] for k in range(3))
+    dx = smp[:, 0:1] - means[None, :, 0]
+    dy = smp[:, 1:2] - means[None, :, 1]
+    if period is not None:
+        dx = dx - period * torch.round(dx * (1.0 / period))
+        dy = dy - period * torch.round(dy * (1.0 / period))
+    px = cxx * dx + cxy * dy
+    py = cxy * dx + cyy * dy
+    g = torch.exp(-0.5 * (dx * px + dy * py))
+    return dx, dy, px, py, g, cxx, cxy, cyy
+
+
+def _weights(geom, order: int):
     """The packed output weights W_k = P_k(p, C) * g, in output order."""
+    dx, dy, px, py, g, cxx, cxy, cyy = geom
     w = [g]
     if order >= 1:
         w += [-px * g, -py * g]
@@ -66,28 +131,76 @@ def _weights(dx, dy, px, py, g, cxx, cxy, cyy, order: int):
     return w
 
 
+def _adjoint_fields(geom, rs, order: int):
+    """The hand-derived adjoint of ``pallas_mixture.py::_adjoint_fields``.
+
+    With ``rs[k] = r_k(j, i) = sum_c cot_k[j, c] v[i, c]`` and the pair term
+    T = sum_k r_k W_k, returns the fields E = dT/d(dx, dy, cxx, cxy, cyy)
+    and A g = T.  Gaussian-parameter gradients are their column sums (means
+    with a sign flip), sample gradients the row sums of (E_dx, E_dy).
+    """
+    dx, dy, px, py, g, cxx, cxy, cyy = geom
+    A = rs[0]
+    Q = R = Dxx = Dxy = Dyy = 0.0
+    if order >= 1:
+        r_x, r_y = rs[1], rs[2]
+        Q = Q - r_x
+        R = R - r_y
+        A = A - px * r_x - py * r_y
+    if order >= 2:
+        r_xx, r_xy, r_yy = rs[3], rs[4], rs[5]
+        Q = Q + 2.0 * px * r_xx + py * r_xy
+        R = R + px * r_xy + 2.0 * py * r_yy
+        A = A + ((px * px - cxx) * r_xx + (px * py - cxy) * r_xy
+                 + (py * py - cyy) * r_yy)
+        Dxx = Dxx - r_xx
+        Dxy = Dxy - r_xy
+        Dyy = Dyy - r_yy
+    if order >= 3:
+        r_xxx, r_xxy, r_xyy, r_yyy = rs[6:10]
+        Q = Q + ((3.0 * cxx - 3.0 * px * px) * r_xxx
+                 + (2.0 * cxy - 2.0 * px * py) * r_xxy
+                 + (cyy - py * py) * r_xyy)
+        R = R + ((cxx - px * px) * r_xxy
+                 + (2.0 * cxy - 2.0 * px * py) * r_xyy
+                 + (3.0 * cyy - 3.0 * py * py) * r_yyy)
+        A = A + ((3.0 * cxx * px - px * px * px) * r_xxx
+                 + (cxx * py + 2.0 * cxy * px - px * px * py) * r_xxy
+                 + (cyy * px + 2.0 * cxy * py - px * py * py) * r_xyy
+                 + (3.0 * cyy * py - py * py * py) * r_yyy)
+        Dxx = Dxx + 3.0 * px * r_xxx + py * r_xxy
+        Dxy = Dxy + 2.0 * px * r_xxy + 2.0 * py * r_xyy
+        Dyy = Dyy + px * r_xyy + 3.0 * py * r_yyy
+    E_dx = g * (Q * cxx + R * cxy - A * px)
+    E_dy = g * (Q * cxy + R * cyy - A * py)
+    E_cxx = g * (Q * dx + Dxx - 0.5 * A * dx * dx)
+    E_cxy = g * (Q * dy + R * dx + Dxy - A * dx * dy)
+    E_cyy = g * (R * dy + Dyy - 0.5 * A * dy * dy)
+    return E_dx, E_dy, E_cxx, E_cxy, E_cyy, A * g
+
+
+def _split_cotangents(cots: Sequence[torch.Tensor], c: int, order: int):
+    """Packed cotangent groups ``(m, G*c)`` -> the per-component ``(m, c)``
+    list in output order."""
+    comps = []
+    for cb, gsize in zip(cots[:order + 1], GROUP_SIZES):
+        comps += [cb[:, k * c:(k + 1) * c] for k in range(gsize)]
+    return comps
+
+
 def mixture_forward_plain(means, conics_packed, values, samples, order: int,
                           period: Optional[float] = None,
                           sample_chunk: int = 1024) -> List[torch.Tensor]:
     """Plain PyTorch version of K1: the same packed outputs, computed in the
     inputs' dtype on their device, ``sample_chunk`` samples at a time."""
-    mx, my = means[:, 0], means[:, 1]
-    cxx, cxy, cyy = conics_packed[:, 0], conics_packed[:, 1], conics_packed[:, 2]
     c = values.shape[1]
     groups = GROUP_SIZES[:order + 1]
     if samples.shape[0] == 0:
         return [samples.new_zeros((0, gsize * c)) for gsize in groups]
     outs = [[] for _ in groups]
     for smp in torch.split(samples, sample_chunk):
-        dx = smp[:, 0:1] - mx[None, :]
-        dy = smp[:, 1:2] - my[None, :]
-        if period is not None:
-            dx = dx - period * torch.round(dx * (1.0 / period))
-            dy = dy - period * torch.round(dy * (1.0 / period))
-        px = cxx * dx + cxy * dy
-        py = cxy * dx + cyy * dy
-        g = torch.exp(-0.5 * (dx * px + dy * py))
-        w = torch.stack(_weights(dx, dy, px, py, g, cxx, cxy, cyy, order))
+        geom = _geometry(smp, means, conics_packed, period)
+        w = torch.stack(_weights(geom, order))
         res = torch.matmul(w, values)                     # (K, chunk, c)
         row = 0
         for slot, gsize in zip(outs, groups):
@@ -97,86 +210,266 @@ def mixture_forward_plain(means, conics_packed, values, samples, order: int,
     return [torch.cat(parts) for parts in outs]
 
 
-class _MixtureForward(torch.autograd.Function):
-    """Autograd seam around K1.  Its backward is the Gaussian-side kernel K2,
-    which is not ported yet, so differentiating through K1 raises."""
+def mixture_backward_gauss_plain(means, conics_packed, values, samples, cots,
+                                 order: int, period: Optional[float] = None,
+                                 sample_chunk: int = 1024
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K2: ``(gm (n, 2), gc (n, 3), gv (n, c))``
+    from the packed cotangents ``cots``, column sums of the adjoint fields
+    over ``sample_chunk`` samples at a time."""
+    n, c = means.shape[0], values.shape[1]
+    gm = means.new_zeros((n, 2))
+    gc = means.new_zeros((n, 3))
+    gv = means.new_zeros((n, c))
+    comps = _split_cotangents(cots, c, order)
+    for start in range(0, samples.shape[0], sample_chunk):
+        stop = start + sample_chunk
+        geom = _geometry(samples[start:stop], means, conics_packed, period)
+        chunk = [cc[start:stop] for cc in comps]
+        rs = [cc @ values.T for cc in chunk]              # r_k (chunk, n)
+        E_dx, E_dy, E_cxx, E_cxy, E_cyy, _ = _adjoint_fields(geom, rs, order)
+        gm = gm + torch.stack([-E_dx.sum(0), -E_dy.sum(0)], dim=-1)
+        gc = gc + torch.stack([E_cxx.sum(0), E_cxy.sum(0), E_cyy.sum(0)],
+                              dim=-1)
+        for w, cc in zip(_weights(geom, order), chunk):
+            gv = gv + w.T @ cc
+    return gm, gc, gv
 
-    @staticmethod
-    def forward(ctx, means, conics_packed, values, samples, order, period):
-        return tuple(_launch(means, conics_packed, values, samples, order,
-                             period))
 
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the backward of the CUDA mixture kernel (K2) is not ported yet")
+def mixture_backward_sample_plain(means, conics_packed, values, samples, cots,
+                                  order: int, period: Optional[float] = None,
+                                  sample_chunk: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of K3: ``gx (m, 2)``, row sums of the adjoint
+    fields E_dx, E_dy."""
+    c = values.shape[1]
+    comps = _split_cotangents(cots, c, order)
+    parts = [samples.new_zeros((0, 2))]
+    for start in range(0, samples.shape[0], sample_chunk):
+        stop = start + sample_chunk
+        geom = _geometry(samples[start:stop], means, conics_packed, period)
+        rs = [cc[start:stop] @ values.T for cc in comps]
+        E_dx, E_dy, *_ = _adjoint_fields(geom, rs, order)
+        parts.append(torch.stack([E_dx.sum(1), E_dy.sum(1)], dim=-1))
+    return torch.cat(parts)
 
 
-def _launch(means, conics_packed, values, samples, order, period):
+# ------------------------------------------------------------- launches ----
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _period_args(period):
+    return (int(period is not None),
+            float(period) if period is not None else 0.0)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_fwd(means, conics_packed, values, samples, order, period):
     global launches
-    fn = _library()[0].pigs_mixture_fwd
+    fn = _fwd_library()[0].pigs_mixture_fwd
     m, c = samples.shape[0], values.shape[1]
     outs = [torch.empty((m, gsize * c), dtype=torch.float32,
                         device=samples.device)
             for gsize in GROUP_SIZES[:order + 1]]
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-    stream = torch.cuda.current_stream(samples.device).cuda_stream
     err = fn(order, c, samples.data_ptr(), means.data_ptr(),
              conics_packed.data_ptr(), values.data_ptr(), m, means.shape[0],
-             int(period is not None),
-             float(period) if period is not None else 0.0, *ptrs, stream)
+             *_period_args(period), *ptrs, _stream(samples.device))
     if err != 0:
         raise RuntimeError(f"mixture_fwd launch failed: cudaError {err}")
     launches += 1
     return outs
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gauss_slices(m: int, n: int, sms: int) -> Tuple[int, int]:
+    """K2's split of the sample axis: ``(slices, slice_len)`` so that the
+    grid has about two blocks per SM, each slice a whole number of tiles."""
+    blocks_n = max(-(-n // BWD_THREADS), 1)
+    target = max(-(-2 * sms // blocks_n), 1)
+    slice_len = -(-max(-(-m // target), 1) // BWD_THREADS) * BWD_THREADS
+    return max(-(-m // slice_len), 1), slice_len
+
+
+def _cot_args(cots, order):
+    ptrs = [_ptr(cb) for cb in cots[:order + 1]]
+    return ptrs + [None] * (4 - len(ptrs))
+
+
+def _launch_bwd_gauss(means, conics_packed, values, samples, cots, order,
+                      period):
+    global bwd_gauss_launches
+    fn = _bwd_library()[0].pigs_mixture_bwd_gauss
+    m, n, c = samples.shape[0], means.shape[0], values.shape[1]
+    dev = samples.device
+    slices, slice_len = gauss_slices(m, n, _sm_count(dev.index or 0))
+    partials = torch.empty((slices, n, 5 + c), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((n, 5 + c), dtype=torch.float32, device=dev)
+    err = fn(order, c, samples.data_ptr(), means.data_ptr(),
+             conics_packed.data_ptr(), values.data_ptr(),
+             *_cot_args(cots, order), m, n, slices, slice_len,
+             *_period_args(period), partials.data_ptr(), out.data_ptr(),
+             _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mixture_bwd_gauss launch failed: cudaError {err}")
+    bwd_gauss_launches += 1
+    return out[:, :2], out[:, 2:5], out[:, 5:]
+
+
+def _launch_bwd_sample(means, conics_packed, values, samples, cots, order,
+                       period):
+    global bwd_sample_launches
+    fn = _bwd_library()[0].pigs_mixture_bwd_sample
+    m, c = samples.shape[0], values.shape[1]
+    gx = torch.empty((m, 2), dtype=torch.float32, device=samples.device)
+    err = fn(order, c, samples.data_ptr(), means.data_ptr(),
+             conics_packed.data_ptr(), values.data_ptr(),
+             *_cot_args(cots, order), m, means.shape[0],
+             *_period_args(period), gx.data_ptr(), _stream(samples.device))
+    if err != 0:
+        raise RuntimeError(
+            f"mixture_bwd_sample launch failed: cudaError {err}")
+    bwd_sample_launches += 1
+    return gx
+
+
+# ------------------------------------------------------------- wrappers ----
+
+
+def _check_inputs(fname, means, conics_packed, values, samples, order,
+                  cots=None):
+    """The one device of the inputs; on CUDA, raise on anything the kernels
+    do not take."""
+    tensors = {"means": means, "conics_packed": conics_packed,
+               "values": values, "samples": samples}
+    if cots is not None:
+        tensors.update({f"cots[{k}]": cb for k, cb in
+                        enumerate(cots[:order + 1])})
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{fname}: inputs on several devices {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"{fname}: no kernel for device {device}")
+    m, n, c = samples.shape[0], means.shape[0], values.shape[1]
+    shapes = {"means": (n, 2), "conics_packed": (n, 3), "values": (n, c),
+              "samples": (m, 2)}
+    if cots is not None:
+        shapes.update({f"cots[{k}]": (m, gsize * c) for k, gsize in
+                       enumerate(GROUP_SIZES[:order + 1])})
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fname}: {name} is {t.dtype}, the kernel "
+                            "takes float32")
+        if t.dim() != 2 or tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{fname}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]} (d=2)")
+        if not t.is_contiguous():
+            raise ValueError(f"{fname}: {name} is not contiguous")
+    if c not in (1, 2) or order not in (0, 1, 2, 3):
+        raise ValueError(f"{fname}: no kernel for c={c}, order={order}")
+    return device
+
+
+def mixture_backward_gauss(means, conics_packed, values, samples, cots,
+                           order: int, period: Optional[float] = None):
+    """Gradients ``(gm (n, 2), gc (n, 3), gv (n, c))`` of the packed K1
+    outputs' cotangents ``cots``: K2 on CUDA tensors, the plain twin on CPU
+    tensors."""
+    device = _check_inputs("mixture_backward_gauss", means, conics_packed,
+                           values, samples, order, cots)
+    if device.type == "cpu":
+        return mixture_backward_gauss_plain(means, conics_packed, values,
+                                            samples, cots, order, period)
+    if samples.shape[0] == 0:
+        return (means.new_zeros((means.shape[0], 2)),
+                means.new_zeros((means.shape[0], 3)), torch.zeros_like(values))
+    return _launch_bwd_gauss(means, conics_packed, values, samples, cots,
+                             order, period)
+
+
+def mixture_backward_sample(means, conics_packed, values, samples, cots,
+                            order: int, period: Optional[float] = None):
+    """Gradient ``gx (m, 2)`` of the samples: K3 on CUDA tensors, the plain
+    twin on CPU tensors."""
+    device = _check_inputs("mixture_backward_sample", means, conics_packed,
+                           values, samples, order, cots)
+    if device.type == "cpu":
+        return mixture_backward_sample_plain(means, conics_packed, values,
+                                             samples, cots, order, period)
+    return _launch_bwd_sample(means, conics_packed, values, samples, cots,
+                              order, period)
+
+
+class _MixtureForward(torch.autograd.Function):
+    """Autograd seam around K1: the forward runs K1 (or its twin on the CPU),
+    the backward K2 and, when the samples need a gradient, K3.
+
+    The Function's outputs are the packed fields, so autograd through
+    :func:`unpack_fields` already sums the cotangents of the symmetric
+    positions into the packed components, as the JAX package's
+    ``_pack_cotangents`` does; a field nobody used arrives as zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, means, conics_packed, values, samples, order, period):
+        ctx.order, ctx.period = order, period
+        ctx.save_for_backward(means, conics_packed, values, samples)
+        if samples.is_cuda:
+            return tuple(_launch_fwd(means, conics_packed, values, samples,
+                                     order, period))
+        return tuple(mixture_forward_plain(means, conics_packed, values,
+                                           samples, order, period))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        means, conics_packed, values, samples = ctx.saved_tensors
+        cots = [g.to(samples.dtype).contiguous() for g in grads]
+        need = ctx.needs_input_grad
+        gm = gc = gv = gx = None
+        if any(need[:3]):
+            gm, gc, gv = mixture_backward_gauss(
+                means, conics_packed, values, samples, cots, ctx.order,
+                ctx.period)
+        if need[3]:
+            gx = mixture_backward_sample(means, conics_packed, values,
+                                         samples, cots, ctx.order, ctx.period)
+        return (gm if need[0] else None, gc if need[1] else None,
+                gv if need[2] else None, gx, None, None)
+
+
 def mixture_forward(means, conics_packed, values, samples, order: int,
                     period: Optional[float] = None) -> List[torch.Tensor]:
-    """Packed mixture outputs up to ``order``: K1 on CUDA tensors, the plain
-    twin on CPU tensors.
+    """Packed mixture outputs up to ``order``, differentiable with respect to
+    every tensor input: K1 (backward K2/K3) on CUDA tensors, the plain twins
+    on CPU tensors.
 
     On CUDA the inputs must be contiguous float32 with ``samples (m, 2)``,
     ``means (n, 2)``, ``conics_packed (n, 3)``, ``values (n, c)``, c in {1, 2},
-    order 0..3, all on one device, none requiring grad (the backward kernel
-    is not ported yet).  Anything else raises.
+    order 0..3, all on one device.  Anything else raises.
     """
-    tensors = {"means": means, "conics_packed": conics_packed,
-               "values": values, "samples": samples}
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"mixture_forward: inputs on several devices {devices}")
-    device = devices.pop()
-    if device.type == "cpu":
-        return mixture_forward_plain(means, conics_packed, values, samples,
-                                     order, period)
-    if device.type != "cuda":
-        raise ValueError(f"mixture_forward: no kernel for device {device}")
-    n, c = means.shape[0], values.shape[1]
-    shapes = {"means": (n, 2), "conics_packed": (n, 3), "values": (n, c),
-              "samples": (samples.shape[0], 2)}
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"mixture_forward: {name} is {t.dtype}, the "
-                            "kernel takes float32")
-        if t.dim() != 2 or tuple(t.shape) != shapes[name]:
-            raise ValueError(f"mixture_forward: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shapes[name]} (d=2)")
-        if not t.is_contiguous():
-            raise ValueError(f"mixture_forward: {name} is not contiguous")
-    if c not in (1, 2) or order not in (0, 1, 2, 3):
-        raise ValueError(f"mixture_forward: no kernel for c={c}, order={order}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in tensors.values()):
-        raise NotImplementedError(
-            "mixture_forward: gradients through the CUDA kernel need its "
-            "backward (K2), which is not ported yet")
+    _check_inputs("mixture_forward", means, conics_packed, values, samples,
+                  order)
     return list(_MixtureForward.apply(means, conics_packed, values, samples,
                                       order, period))
 
 
 def pack_conics(conics_full: torch.Tensor) -> torch.Tensor:
-    """``(n, 2, 2)`` -> ``(n, 3)`` = ``[cxx, cxy, cyy]``."""
+    """``(n, 2, 2)`` -> ``(n, 3)`` = ``[cxx, cxy, cyy]``.  A gradient of the
+    packed ``cxy`` flows to ``C[0, 1]`` only."""
     return torch.stack([conics_full[:, 0, 0], conics_full[:, 0, 1],
                         conics_full[:, 1, 1]], dim=-1)
 

@@ -9,12 +9,12 @@ from __future__ import annotations
 
 import enum
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 __all__ = ["Problem", "IntegrationRule", "PDECoefficients", "pde_rhs",
-           "pde_size", "channels"]
+           "pde_size", "channels", "time_integrate"]
 
 
 class Problem(enum.Enum):
@@ -98,3 +98,27 @@ def pde_rhs(
         return torch.zeros_like(u)
 
     raise ValueError(f"Unexpected PDE problem: {problem}")
+
+
+def time_integrate(rule: IntegrationRule, time_samples: torch.Tensor,
+                   prev: Sequence[Optional[torch.Tensor]],
+                   curr: Sequence[Optional[torch.Tensor]]):
+    """Mix two consecutive sample sets per the integration rule.
+
+    TRAPEZOID takes a random convex combination per collocation point,
+    ``ts * curr + (1 - ts) * prev``; FORWARD and BACKWARD pick an endpoint.
+    ``prev`` and ``curr`` are tuples of tensors (or None) with the sample
+    axis leading.
+    """
+    if rule == IntegrationRule.FORWARD:
+        return prev
+    if rule == IntegrationRule.BACKWARD:
+        return curr
+
+    def mix(a, b):
+        if a is None or b is None:
+            return None
+        ts = time_samples.reshape((-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
+        return ts * b + (1.0 - ts) * a
+
+    return tuple(mix(a, b) for a, b in zip(prev, curr))

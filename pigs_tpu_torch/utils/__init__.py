@@ -1,3 +1,6 @@
-from pigs_tpu_torch.utils.sampling import grid_samples, image_samples
+from pigs_tpu_torch.utils.sampling import (boundary_band_samples,
+                                           collocation_samples, grid_samples,
+                                           image_samples)
 
-__all__ = ["grid_samples", "image_samples"]
+__all__ = ["grid_samples", "image_samples", "collocation_samples",
+           "boundary_band_samples"]

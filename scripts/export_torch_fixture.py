@@ -1,12 +1,13 @@
 #!/usr/bin/env python
-"""Export a trained PN checkpoint and its JAX rollout for the PyTorch port.
+"""Export a trained PN checkpoint and JAX references for the PyTorch port.
 
-Restores the EMA parameters of an orbax checkpoint through
-``pigs_tpu.train.checkpoint.restore_checkpoint`` (the bare step directory
-staged under a manager root, as scripts/select_split_stop.py does), rolls the
-model out with the JAX package on the CPU, solves the finite-difference
-ground truth from the rendered initial field exactly as
-scripts/validate_pn.py does, and writes one ``np.savez_compressed`` file:
+``--kind rollout`` (the default) restores the EMA parameters of an orbax
+checkpoint through ``pigs_tpu.train.checkpoint.restore_checkpoint`` (the
+bare step directory staged under a manager root, as
+scripts/select_split_stop.py does), rolls the model out with the JAX package
+on the CPU, solves the finite-difference ground truth from the rendered
+initial field exactly as scripts/validate_pn.py does, and writes one
+``np.savez_compressed`` file:
 
   params/...            the EMA params, flax paths joined with '/'
   frequencies           the network's fixed embedding frequencies
@@ -16,12 +17,36 @@ scripts/validate_pn.py does, and writes one ``np.savez_compressed`` file:
   jax_mean_rel_l2       the JAX-CPU rollout's mean rel-L2 against fd_frames
   jax_per_step_rel_l2   (steps,) its per-step values
 
-The port (pigs_tpu_torch) loads this file on a machine without JAX.
+``--kind train`` restores the whole training state (raw params, EMA params,
+optax Adam state) under the flagship recipe, draws the inputs of the first
+epoch that ``train`` runs when it resumes at the checkpoint's epoch (samples
+and the randomized IC with noise, exactly as ``train_epoch`` draws them),
+and runs the JAX package in float64 on the CPU from there:
 
-Example:
+  params/..., ema/..., adam_mu/..., adam_nu/..., adam_count
+                        the checkpoint, float32 as stored
+  frequencies, config_* as above
+  train_*               the recipe: epoch, n_epochs, base_lr, dt, epsilon,
+                        loss_weight_floor, clip_norm, ema_decay, ...
+  input_*               samples, time_samples, bc_samples and the IC state
+                        (means, scaling, transforms, u, active, boundary)
+  step_losses           one pn_step from that state: [pde, bc, cons, init,
+                        mag, total] (float64)
+  step_grads/...        its gradients (float64)
+  step_params/...       the parameters after its Adam update (float64)
+  step_loss_weight      its new loss weight
+  epoch_per_step        (steps, 6) losses of the 20-step split-regime epoch
+  epoch_active          (steps, capacity) active masks after each step
+  epoch_params/...      the parameters after the epoch (float64)
+
+The port (pigs_tpu_torch) loads these files on a machine without JAX.
+
+Examples:
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
       --ckpt artifacts/burgers_ns4096_ema2_ckpt_30000 \
       --out artifacts/burgers_ns4096_ema2_torch.npz
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind train \
+      --out artifacts/burgers_ns4096_ema2_train_torch.npz
 """
 
 import argparse
@@ -59,6 +84,30 @@ def restore_ema_params(ckpt: str, cfg):
     return network, restored.ema_params
 
 
+def flagship_train_config():
+    """The flagship recipe (BENCHMARKS.md, results_burgers_ns4096_ema2),
+    resumed for three epochs past the checkpoint's 30000."""
+    from pigs_tpu.train.pn import TrainConfig
+    return TrainConfig(n_epochs=30003, n_samples=4096, lr=3e-4, lr_min=2e-5,
+                       dt=DT, train_timesteps=50, loss_weight_floor=0.05,
+                       ema_decay=0.999, clip_norm=1.0,
+                       skip_nonfinite_updates=True)
+
+
+def restore_training_state(ckpt: str, cfg, tcfg):
+    """(network, opt, params, opt_state, ema_params, epoch) of ``ckpt``."""
+    from pigs_tpu.train.checkpoint import restore_checkpoint
+    from pigs_tpu.train.pn import init_training
+    network, template, opt, opt_template = init_training(cfg, tcfg)
+    step = os.path.basename(os.path.normpath(ckpt)).rsplit("_", 1)[-1]
+    with tempfile.TemporaryDirectory() as td:
+        shutil.copytree(ckpt, os.path.join(td, step))
+        r = restore_checkpoint(td, template, opt_template)
+    if r.opt_state is None or r.ema_params is None:
+        raise ValueError(f"{ckpt} lacks opt_state or ema_params")
+    return network, opt, r.params, r.opt_state, r.ema_params, r.step
+
+
 def flatten_params(tree) -> dict:
     """A flax params tree -> {'/'-joined path: numpy array}."""
     import jax
@@ -70,12 +119,185 @@ def flatten_params(tree) -> dict:
     return flat
 
 
+def frequencies_of(cfg):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    return np.asarray(jax.random.normal(
+        jax.random.PRNGKey(42), ((25 - 1) // cfg.d // 2,),
+        dtype=jnp.float32) * 10.0)
+
+
+def adam_of(opt_state):
+    """The ScaleByAdamState inside an inject_hyperparams(chain(clip, adam))
+    state."""
+    import jax
+    import optax
+    is_adam = lambda x: isinstance(x, optax.ScaleByAdamState)
+    found = [s for s in jax.tree_util.tree_leaves(opt_state, is_leaf=is_adam)
+             if is_adam(s)]
+    if len(found) != 1:
+        raise ValueError(f"expected one ScaleByAdamState, found {len(found)}")
+    return found[0]
+
+
+def float32_default_normal():
+    """Patch ``jax.random.normal`` to draw float32 unless told otherwise.
+
+    The network draws its fixed embedding frequencies with
+    ``jax.random.normal(PRNGKey(42), ...)`` and no dtype.  The flagship was
+    trained without x64, so its frequencies are the float32 draw; under x64
+    the same call draws float64 numbers, which are different numbers, and
+    the reference would not be the flagship's network.  Every other draw
+    here names its dtype."""
+    from unittest import mock
+
+    import jax
+    import jax.numpy as jnp
+    normal = jax.random.normal
+
+    def f32_normal(key, shape=(), dtype=None):
+        return normal(key, shape, jnp.float32 if dtype is None else dtype)
+    return mock.patch.object(jax.random, "normal", f32_normal)
+
+
+def export_train(ckpt: str, out: str):
+    """Write the training fixture (see the module docstring)."""
+    with float32_default_normal():
+        _export_train(ckpt, out)
+
+
+def _export_train(ckpt: str, out: str):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from pigs_tpu.models.model import (adaptive_split, compute_loss,
+                                       forward_step, randomize_state_dynamic,
+                                       sample_fields)
+    from pigs_tpu.train.pn import _filter_finite, pn_step
+    from pigs_tpu.utils.sampling import (boundary_band_samples,
+                                         collocation_samples)
+
+    cfg, tcfg = flagship_config(), flagship_train_config()
+    network, opt, params, opt_state, ema, epoch = restore_training_state(
+        ckpt, cfg, tcfg)
+    adam = adam_of(opt_state)
+    print(f"restored {ckpt} at epoch {epoch}; adam count {int(adam.count)}",
+          flush=True)
+
+    # The first epoch of train(resume=True): key split as train() and
+    # train_epoch() do it, in float32 as the run draws it.
+    key = jax.random.PRNGKey(tcfg.seed)
+    key, sub = jax.random.split(key)
+    k_rand, k_s, k_t, k_bc, k_n, _ = jax.random.split(sub, 6)
+    m = tcfg.n_samples
+    samples = collocation_samples(k_s, m, cfg.d, cfg.scale, cfg.dtype)
+    time_samples = jax.random.uniform(k_t, (m,), cfg.dtype)
+    bc_samples = boundary_band_samples(k_bc, m, cfg.scale, cfg.dtype)
+    n_max = min(39, int(np.floor(np.sqrt(cfg.capacity - 100))))
+    n = int(jnp.minimum(jax.random.randint(k_n, (), 15, 40), n_max))
+    state = randomize_state_dynamic(cfg, k_rand, n, n_max=n_max)
+    n_steps = min(min(epoch // tcfg.bootstrap_rate + 1,
+                      tcfg.initial_timesteps), tcfg.train_timesteps)
+    base_lr = tcfg.base_lr_at(epoch)
+
+    # Everything below in float64.
+    f64 = jnp.float64
+    up = lambda tree: jax.tree_util.tree_map(
+        lambda x: x.astype(f64) if jnp.issubdtype(x.dtype, jnp.floating)
+        else x, tree)
+    cfg64 = cfg._replace(dtype=f64)
+    params64, opt64, state64 = up(params), up(opt_state), up(state)
+    smp, ts, bc = up((samples, time_samples, bc_samples))
+    prev = sample_fields(cfg64, state64, smp, bc)
+
+    def loss_fn(p):
+        new_state, deltas = forward_step(cfg64, network, p, state64, t=0.0)
+        curr = sample_fields(cfg64, new_state, smp, bc)
+        return _filter_finite(compute_loss(cfg64, new_state, deltas, prev,
+                                           curr, smp, ts, 0.0, tcfg.dt)).total
+
+    grads = jax.grad(loss_fn)(params64)
+    step_args = dict(loss_weight_floor=jnp.asarray(tcfg.loss_weight_floor, f64),
+                     skip_nonfinite=tcfg.skip_nonfinite_updates)
+    (p1, _, _, _, losses, total, lw) = pn_step(
+        cfg64, network, opt, params64, opt64, state64, prev, smp, ts, bc,
+        jnp.ones((), f64), jnp.asarray(base_lr, f64), tcfg.epsilon,
+        jnp.asarray(0.0, f64), tcfg.dt, **step_args)
+    step_losses = np.asarray([losses.pde, losses.bc, losses.conservation,
+                              losses.initial, losses.magnitude, total])
+    print(f"one pn_step: losses {step_losses}", flush=True)
+
+    # The split-regime epoch, step by step (train_epoch's loop form).
+    split = jax.jit(adaptive_split, static_argnames=("cfg",))
+    sample = jax.jit(sample_fields, static_argnames=("cfg",))
+    p, o, s, pf, loss_weight = params64, opt64, state64, prev, jnp.ones((), f64)
+    per_step, active = [], []
+    for i in range(n_steps):
+        before = s
+        (p, o, s, pf, losses, total, loss_weight) = pn_step(
+            cfg64, network, opt, p, o, s, pf, smp, ts, bc, loss_weight,
+            jnp.asarray(base_lr, f64), tcfg.epsilon,
+            jnp.asarray(i * tcfg.dt, f64), tcfg.dt, **step_args)
+        s = split(cfg64, s, before)
+        pf = sample(cfg64, s, smp, bc)
+        per_step.append([float(x) for x in (losses.pde, losses.bc,
+                                            losses.conservation,
+                                            losses.initial, losses.magnitude,
+                                            total)])
+        active.append(np.asarray(s.active))
+        print(f"epoch step {i}: total {per_step[-1][5]:.6f}, active "
+              f"{int(active[-1].sum())}", flush=True)
+
+    prefixed = lambda prefix, tree: {
+        prefix + k[len("params"):]: v for k, v in flatten_params(tree).items()}
+    np.savez_compressed(
+        out, **flatten_params(params), **prefixed("ema", ema),
+        **prefixed("adam_mu", adam.mu), **prefixed("adam_nu", adam.nu),
+        adam_count=np.asarray(adam.count),
+        frequencies=frequencies_of(cfg),
+        config_problem=np.asarray(cfg.problem.name),
+        config_nx=np.asarray(NX), config_capacity=np.asarray(cfg.capacity),
+        config_dt=np.asarray(DT),
+        train_epoch=np.asarray(epoch), train_n_epochs=np.asarray(tcfg.n_epochs),
+        train_n_samples=np.asarray(m), train_lr=np.asarray(tcfg.lr),
+        train_lr_min=np.asarray(tcfg.lr_min), train_base_lr=np.asarray(base_lr),
+        train_dt=np.asarray(tcfg.dt), train_epsilon=np.asarray(tcfg.epsilon),
+        train_timesteps=np.asarray(tcfg.train_timesteps),
+        train_loss_weight_floor=np.asarray(tcfg.loss_weight_floor),
+        train_clip_norm=np.asarray(tcfg.clip_norm),
+        train_ema_decay=np.asarray(tcfg.ema_decay),
+        train_split_epoch=np.asarray(tcfg.split_epoch),
+        train_n_steps=np.asarray(n_steps), input_grid_n=np.asarray(n),
+        input_samples=np.asarray(samples),
+        input_time_samples=np.asarray(time_samples),
+        input_bc_samples=np.asarray(bc_samples),
+        **{f"input_{f}": np.asarray(getattr(state, f))
+           for f in state._fields},
+        step_losses=step_losses, **prefixed("step_grads", grads),
+        **prefixed("step_params", p1), step_loss_weight=np.asarray(lw),
+        epoch_per_step=np.asarray(per_step),
+        epoch_active=np.stack(active), **prefixed("epoch_params", p))
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--kind", choices=["rollout", "train"], default="rollout")
     p.add_argument("--ckpt", default="artifacts/burgers_ns4096_ema2_ckpt_30000")
-    p.add_argument("--out", default="artifacts/burgers_ns4096_ema2_torch.npz")
+    p.add_argument("--out", default=None,
+                   help="default: artifacts/burgers_ns4096_ema2_torch.npz "
+                        "(rollout) or ..._train_torch.npz (train)")
     args = p.parse_args()
+    if args.kind == "train":
+        import jax
+        jax.config.update("jax_enable_x64", True)
+        export_train(args.ckpt, args.out
+                     or "artifacts/burgers_ns4096_ema2_train_torch.npz")
+        return
+    args.out = args.out or "artifacts/burgers_ns4096_ema2_torch.npz"
 
     import jax
     import jax.numpy as jnp
@@ -99,10 +321,7 @@ def main():
     print(f"JAX-CPU mean rel-L2 vs FD: {metrics['mean_rel_norm']:.6f}",
           flush=True)
 
-    freq_size = (25 - 1) // cfg.d // 2
-    frequencies = np.asarray(
-        jax.random.normal(jax.random.PRNGKey(42), (freq_size,),
-                          dtype=jnp.float32) * 10.0)
+    frequencies = frequencies_of(cfg)
     np.savez_compressed(
         args.out, **flat,
         frequencies=frequencies,

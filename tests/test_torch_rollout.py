@@ -2,7 +2,8 @@
 fixture the port is held to on the GPU.
 
 * A 3-step rollout at res 16, capacity 160, against JAX's ``rollout`` in
-  float64: rtol 1e-9 of the frame scale (float64 through three steps).
+  float64: rtol 1e-9 of the frame scale (float64 through three steps); the
+  same with the first two steps densified by the training-time split.
 * A 2-step CPU rollout of the exported Burgers flagship against the first
   two JAX frames stored in the fixture, norm-relative 1e-4: float32 on both
   sides, the port on the CPU against JAX on the CPU.
@@ -46,7 +47,7 @@ def exporter():
     return module
 
 
-def test_rollout_matches_jax_f64():
+def small_models():
     jcfg = jmodel.ModelConfig.create(JProblem.BURGERS, JRule.TRAPEZOID, nx=6,
                                      ny=6, capacity=160, dtype=jnp.float64)
     tcfg = tmodel.ModelConfig.create(Problem.BURGERS,
@@ -54,17 +55,33 @@ def test_rollout_matches_jax_f64():
                                      capacity=160, dtype=torch.float64)
     network, params, _, _ = jpn.init_training(jcfg, jpn.TrainConfig(
         n_epochs=1, seed=5))
-    want, _ = jpn.rollout(jcfg, network, params, n_steps=3, res=16)
-
     freqs = np.array(jax.random.normal(jax.random.PRNGKey(42), (6,)) * 10.0)
     net = tmodel.make_network(tcfg, frequencies=torch.from_numpy(freqs))
     net.load_state_dict(convert.params_from_flax(flatten(params)))
+    return jcfg, network, params, tcfg, net
+
+
+def test_rollout_matches_jax_f64():
+    jcfg, network, params, tcfg, net = small_models()
+    want, _ = jpn.rollout(jcfg, network, params, n_steps=3, res=16)
     got, evo_time = tpn.rollout(tcfg, net, n_steps=3, res=16)
     assert got.shape == (3, 1, 16, 16) and got.dtype == np.float64
     assert evo_time > 0.0
     np.testing.assert_allclose(got, want, rtol=1e-9,
                                atol=1e-9 * np.abs(want).max())
     assert np.abs(got[2] - got[0]).max() > 1e-6  # the field does evolve
+
+
+def test_densified_rollout_matches_jax_f64():
+    jcfg, network, params, tcfg, net = small_models()
+    want, _ = jpn.rollout(jcfg, network, params, n_steps=3, res=16,
+                          densify=2)
+    got, _ = tpn.rollout(tcfg, net, n_steps=3, res=16, densify=2)
+    np.testing.assert_allclose(got, want, rtol=1e-9,
+                               atol=1e-9 * np.abs(want).max())
+    # The split changed the trajectory.
+    plain, _ = tpn.rollout(tcfg, net, n_steps=3, res=16)
+    assert np.abs(plain[2] - got[2]).max() > 1e-9
 
 
 def test_fixture_rollout_matches_stored_jax_frames():
@@ -110,5 +127,3 @@ def test_rollout_guards():
     net = tmodel.make_network(cfg)
     with pytest.raises(ValueError, match="dt=...\\) is required for POISSON"):
         tpn.rollout(cfg, net, n_steps=1, res=4)
-    with pytest.raises(NotImplementedError, match="split PR"):
-        tpn.rollout(cfg, net, n_steps=1, res=4, dt=0.1, densify=True)
