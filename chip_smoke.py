@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
 
   1. device    the card's name and power limit, torch and CUDA versions, and
                the builds of the CUDA kernels from pigs_tpu_torch/ops/csrc/
-               with nvcc for sm_90a, both sources at once: K1 (mixture
-               forward) and K2/K3 (its backward, Gaussian and sample side);
+               with nvcc for sm_90a, all four sources at once: K1 (mixture
+               forward), K2/K3 (its backward, Gaussian and sample side), K4
+               (fused neighbour aggregation) and K5 (its backward);
   2. kernel    K1 against its plain PyTorch twin and the plain path in
                float32 (norm-relative error <= 1e-5 per field) and against
                the plain path in float64 (<= 1e-4), at the two shapes of the
@@ -46,7 +47,29 @@ Phases, in order; any failure exits non-zero:
                their plain twins at the main path's shapes; pn_step and the
                epoch through the kernels and through the plain path; a
                profile of training steps (kernels and device idle share);
-               the timed rollout.
+               the timed rollout;
+  9. ns        the Navier-Stokes rollout of the held-out trajectory from
+               artifacts/ns_vorttrain_torch.npz and artifacts/
+               ns_data_8traj.npz (capacity 640, order 3, c=2, period 2.0):
+               exactly 1 + 2 K1 launches per step (frame 0's render, then a
+               step and a render), frame 0 <= 1e-5 and steps 1-5 <= 1e-3
+               against the JAX frames, mean rel-L2 against the solver's
+               frames within 0.005 of the JAX-CPU value; the timed rollout
+               and a profile of 5 of its steps;
+ 10. aggregate K4 and K5 (the fused neighbour aggregation, forward and
+               backward) driven at both heads' real inputs: the flagship's
+               initial state, the training fixture's state, and the NS
+               held-out state at t=0 and after 25 steps.  K4 against its
+               float32 twin (<= 1e-5) and float64 twin (<= 1e-4), K5's seven
+               gradients against autograd through the float64 twin
+               (<= 1e-4 each), K4 against the factored aggregation the
+               network runs (its error and the number of pairs the two
+               neighbour rules decide differently; above 1e-4 a failure
+               only when no pair differs); exact K4/K5 launch counts.  Then
+               forward and forward+backward times of K4/K5, the factored
+               path and the plain twin at the real inputs (head 0) and at
+               benchmarks/perf_suite.py's synthetic inputs, n in {512, 1664,
+               4096, 8192}.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the last line is a JSON object with ``ok`` and the device.  Without a CUDA
@@ -65,7 +88,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "artifacts", "burgers_ns4096_ema2_torch.npz")
 TRAIN_FIXTURE = os.path.join(ROOT, "artifacts",
                              "burgers_ns4096_ema2_train_torch.npz")
+NS_FIXTURE = os.path.join(ROOT, "artifacts", "ns_vorttrain_torch.npz")
+NS_DATA = os.path.join(ROOT, "artifacts", "ns_data_8traj.npz")
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
+PERF_SUITE_SIZES = (512, 1664, 4096, 8192)  # benchmarks/perf_suite.py
 
 KERNEL_F32_TOL = 1e-5    # a kernel vs the same math in float32, summed in another order
 KERNEL_F64_TOL = 1e-4    # a kernel vs the float64 oracle (the repo's bound, BASELINE.md:21)
@@ -379,6 +405,283 @@ def train_step_phase(ti, impl):
     return loss_errs, grad_err, update_err, lw_err
 
 
+def profile_ms(fn, steps: int, label: str, card: str):
+    """Profile one call of ``fn`` (``steps`` steps, warmed up by the
+    caller): device operations per step, device busy time against the wall
+    time (the idle share under the profiler), and the largest items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(device_us(e) for e in events)
+    kernels = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -device_us(e))[:8]
+    print(f"[profile] {steps} {label}: {kernels / steps:.0f} device ops per "
+          f"step, device busy {busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms "
+          f"wall (idle share {1 - busy / wall:.3f} under the profiler; "
+          f"{card})", flush=True)
+    for e in top:
+        print(f"  {device_us(e) / 1e3 / steps:.4f} ms/step "
+              f"x{e.count // steps} {e.key[:90]}", flush=True)
+
+
+def ns_phase(dev, mk, card) -> dict:
+    """Phase 9: the NS held-out rollout through K1, counted and checked
+    against the fixture's JAX frames and the dataset's solver frames."""
+    import numpy as np
+    import torch
+
+    from pigs_tpu_torch.convert import load_fixture
+    from pigs_tpu_torch.models.model import forward_step
+    from pigs_tpu_torch.train.pn import (NSDataset, rollout_metrics,
+                                         rollout_vorticity)
+    cfg, network, fix = load_fixture(NS_FIXTURE, device=dev)
+    data = NSDataset.load(NS_DATA, device=dev)
+    index = int(fix["config_held_out"])
+    steps, res = int(fix["config_steps"]), int(fix["config_res"])
+    state0 = data.state_for(cfg, index)
+
+    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    frames = rollout_vorticity(cfg, network, state0, steps, res)
+    torch.cuda.synchronize()
+    counts = (mk.launches, mk.bwd_gauss_launches, mk.bwd_sample_launches)
+    # Frame 0's render, then per step forward_step (order 3 at the means)
+    # and the render (order 1 at the 64x64 pixel centres).
+    want = (1 + 2 * steps, 0, 0)
+    print(f"[ns] launches (K1, K2, K3) {counts}, expected {want}: "
+          f"{(counts[0] - 1) // steps} K1 per step", flush=True)
+    check(counts == want, f"NS rollout launches {counts} != {want}")
+    frames = frames.cpu().numpy()
+    check(frames.shape == (steps + 1, res, res), f"NS frames {frames.shape}")
+    check(bool(np.isfinite(frames).all()), "NS frames not finite")
+    jax_frames = fix["jax_frames"]
+    vs_jax = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+              for a, b in zip(frames, jax_frames)]
+    gt = data.frames[index].permute(2, 0, 1).cpu().numpy()
+    metrics = rollout_metrics(frames, gt)
+    fit = rollout_metrics(frames[:1], gt[:1])
+    jax_mean = float(fix["jax_mean_rel_l2"])
+    print("[ns] per-step rel-L2 vs JAX frames: "
+          + " ".join(f"{v:.2e}" for v in vs_jax), flush=True)
+    print(f"[ns] mean rel-L2 vs the solver {metrics['mean_rel_norm']:.6f} "
+          f"(JAX-CPU {jax_mean:.6f}); t=0 curl-fit error "
+          f"{fit['mean_rel_norm']:.6f} (JAX-CPU "
+          f"{float(fix['jax_t0_rel_l2']):.6f})", flush=True)
+    check(vs_jax[0] <= FRAME0_TOL, f"NS frame 0 vs JAX {vs_jax[0]:.3e}")
+    check(max(vs_jax[1:6]) <= EARLY_FRAMES_TOL,
+          f"NS steps 1-5 vs JAX {max(vs_jax[1:6]):.3e}")
+    check(abs(metrics["mean_rel_norm"] - jax_mean) <= MEAN_REL_L2_TOL,
+          f"NS mean rel-L2 {metrics['mean_rel_norm']:.6f} vs JAX "
+          f"{jax_mean:.6f}")
+
+    ms = statistics.median(
+        host_ms(lambda: rollout_vorticity(cfg, network, state0, steps, res))
+        for _ in range(3))
+    print(f"[times] NS rollout {steps} steps at {res}x{res} with frame 0: "
+          f"{ms:.2f} ms ({ms / steps:.3f} ms/step; median of 3, host clock "
+          f"with device syncs; {card})", flush=True)
+    state25 = state0
+    with torch.inference_mode():
+        for _ in range(25):
+            state25, _ = forward_step(cfg, network, state25)
+        profile_ms(lambda: rollout_vorticity(cfg, network, state0, 5, res),
+                   5, "NS rollout steps", card)
+    # Out of inference mode, so that the aggregate phase can differentiate.
+    state25 = type(state25)(*(x.clone() for x in state25))
+    return {"cfg": cfg, "network": network, "state0": state0,
+            "state25": state25, "counts": counts, "ms": ms,
+            "mean_rel_l2": metrics["mean_rel_norm"]}
+
+
+def aggregation_inputs(cfg, network, state):
+    """Each head's aggregation inputs at ``state`` as forward_step builds
+    them, the means, the radii, and the network's neighbour mask."""
+    import torch
+
+    from pigs_tpu_torch.models.model import network_inputs
+    from pigs_tpu_torch.ops.aggregate_kernel import radii_of
+    with torch.no_grad():
+        args = network_inputs(cfg, state)
+        _, heads = network.aggregation_inputs(*args[:9])
+    means, full_cov, active, nbr = args[0], args[1], args[8], args[9]
+    return heads, means, radii_of(full_cov, active), nbr
+
+
+def perf_suite_inputs(n, gen, dev):
+    """benchmarks/perf_suite.py's aggregation inputs (L=K=16, F=6, d=2,
+    every Gaussian active, std 0.1 shrunk as 1/sqrt(n) past n=1664), drawn
+    with torch from ``gen``: ``(head inputs, means, covariances)``."""
+    import torch
+    L, K, F, d = 16, 16, 6, 2
+    E = 1 + 2 * F * d
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen)
+    inputs = (normal(n, L), normal(L, L) / L ** 0.5, normal(n, K),
+              normal(n, K), torch.abs(normal(F)) * 10.0,
+              normal(L, 2 * E) / E ** 0.5)
+    means = torch.rand((n, d), generator=gen) * 2.0 - 1.0
+    sig = 0.1 * min(1.0, (1664.0 / n) ** 0.5)
+    cov = (sig ** 2) * torch.eye(d).expand(n, d, d).contiguous()
+    return ([x.to(dev) for x in inputs], means.to(dev), cov.to(dev))
+
+
+def aggregate_phase(dev, ak, card, cases) -> dict:
+    """Phase 10: K4/K5 at each case's real inputs (both heads), counted and
+    checked; then the timings at perf_suite's sizes."""
+    import torch
+
+    from pigs_tpu_torch.ops.aggregate import (aggregate_neighbors_factored,
+                                              neighbor_mask)
+    gen = torch.Generator().manual_seed(3)
+    prepared = []
+    for label, cfg, network, state in cases:
+        heads, means, radii, nbr = aggregation_inputs(cfg, network, state)
+        for h, head in enumerate(heads):
+            cot = torch.randn(head.features.shape, generator=gen,
+                              dtype=torch.float64).float().to(dev)
+            prepared.append((f"{label} head {h}", cfg.period, nbr,
+                             [x.detach().contiguous() for x in head]
+                             + [means.contiguous(), radii.contiguous()],
+                             cot))
+
+    # The path: K4 forward and K5 backward once per case and head.  (The
+    # timings below launch them again; those launches are not counted.)
+    ak.fwd_launches = ak.bwd_launches = 0
+    results = []
+    for label, period, _, x32, cot in prepared:
+        tin = [x.clone().requires_grad_() for x in x32[:7]]
+        out = ak.aggregate_neighbors_fused(*tin, x32[7], period=period)
+        grads = torch.autograd.grad(out, tin, cot)
+        results.append((out.detach(), grads))
+    torch.cuda.synchronize()
+    launches = {"fwd": ak.fwd_launches, "bwd": ak.bwd_launches}
+    print(f"[aggregate] launches (K4, K5) ({launches['fwd']}, "
+          f"{launches['bwd']}), expected ({len(prepared)}, {len(prepared)})",
+          flush=True)
+    check(launches == {"fwd": len(prepared), "bwd": len(prepared)},
+          f"aggregate launches {launches}")
+
+    names = ("features", "transform", "queries", "keys", "frequencies",
+             "distance_transform", "means")
+    max_abs = {"fwd": 0.0, "bwd": 0.0}
+    differ = {}
+    for (label, period, nbr, x32, cot), (out, grads) in zip(prepared,
+                                                            results):
+        x64 = [x.double() for x in x32]
+        twin32 = ak.aggregate_fused_plain(*x32, period=period)
+        twin64 = ak.aggregate_fused_plain(*x64, period=period)
+        factored = aggregate_neighbors_factored(*x32[:7], mask=nbr,
+                                                period=period)
+        kmask = ak.kernel_mask(x32[6], x32[7], 3.0, period)
+        differ[label] = int((kmask != nbr).sum())
+        active = int((x32[7] > -float("inf")).sum())
+        e32, e64, ef = (rel_err(out, twin32), rel_err(out, twin64),
+                        rel_err(out, factored))
+        max_abs["fwd"] = max(max_abs["fwd"], (out - twin32).abs().max().item())
+        check(bool(torch.isfinite(out).all()), f"{label}: K4 not finite")
+        want64 = ak.aggregate_fused_backward_plain(*x64, cot.double(),
+                                                   period=period)
+        want32 = ak.aggregate_fused_backward_plain(*x32, cot, period=period)
+        gerrs = [rel_err(a, b) for a, b in zip(grads, want64)]
+        max_abs["bwd"] = max([max_abs["bwd"]] + [
+            (a - b).abs().max().item() for a, b in zip(grads, want32)])
+        print(f"  {label}: {active} active, {int(kmask.sum()) / active:.1f} "
+              f"neighbours per active; K4 rel err vs twin f32 {e32:.3e}, "
+              f"f64 {e64:.3e}, factored {ef:.3e} ({differ[label]} pairs "
+              "decided differently); K5 vs f64 "
+              + " ".join(f"{n[:5]} {e:.1e}" for n, e in zip(names, gerrs)),
+              flush=True)
+        check(e32 <= KERNEL_F32_TOL,
+              f"{label}: K4 vs float32 twin {e32:.3e} > {KERNEL_F32_TOL}")
+        check(e64 <= KERNEL_F64_TOL,
+              f"{label}: K4 vs float64 twin {e64:.3e} > {KERNEL_F64_TOL}")
+        check(ef <= KERNEL_F64_TOL or differ[label] > 0,
+              f"{label}: K4 vs the factored path {ef:.3e} > "
+              f"{KERNEL_F64_TOL} with the same neighbours")
+        for n, e in zip(names, gerrs):
+            check(e <= KERNEL_F64_TOL,
+                  f"{label}: K5 grad {n} vs float64 {e:.3e} > "
+                  f"{KERNEL_F64_TOL}")
+    print(f"[aggregate] {len(prepared)} cases pass; max abs err vs the f32 "
+          f"twins: K4 {max_abs['fwd']:.3e}, K5 {max_abs['bwd']:.3e}",
+          flush=True)
+
+    # Times at the real inputs (head 0 of each case) and at perf_suite's
+    # inputs.  The float32 twin's forward+backward at n=8192 keeps every
+    # row chunk's autograd state, ~40 GB: it fits the 80 GB card.
+    times = {}
+    for label, period, nbr, x32, _ in prepared[::2]:
+        f, tr, q, k, fr, dist, means, radii = x32
+        real = time_aggregation(ak, f, tr, q, k, fr, dist, means, radii, nbr,
+                                period)
+        times.update({(impl, key, label): t
+                      for (impl, key), t in real.items()})
+        print(f"[times] aggregation at {label} (n={f.shape[0]}): "
+              + describe_times(real) + f" (median of 20; {card})",
+              flush=True)
+    for n in PERF_SUITE_SIZES:
+        inputs, means, cov = perf_suite_inputs(n, gen, dev)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        mask = neighbor_mask(means, cov, active)
+        synth = time_aggregation(ak, *inputs, means, ak.radii_of(cov, active),
+                                 mask, None)
+        times.update({(impl, key, n): t for (impl, key), t in synth.items()})
+        print(f"[times] aggregation n={n} "
+              f"({float(mask.sum()) / n:.1f} neighbours per Gaussian): "
+              + describe_times(synth) + f" (median of 20; {card})",
+              flush=True)
+    return {"launches": launches, "max_abs": max_abs, "differ": differ,
+            "times": times}
+
+
+def time_aggregation(ak, f, tr, q, k, fr, dist, means, radii, mask,
+                     period) -> dict:
+    """Median CUDA-event times of K4 (``kernel``), the factored path with
+    ``mask`` and the float32 twin: the forward (``fwd``) and the forward and
+    backward of sum(out**2) in features, queries, keys and means (``bwd``),
+    as benchmarks/perf_suite.py takes them."""
+    import torch
+
+    from pigs_tpu_torch.ops.aggregate import aggregate_neighbors_factored
+    impls = {
+        "kernel": lambda f, q, k, m: ak.aggregate_neighbors_fused(
+            f, tr, q, k, fr, dist, m, radii, period=period),
+        "factored": lambda f, q, k, m: aggregate_neighbors_factored(
+            f, tr, q, k, fr, dist, m, mask, period=period),
+        "plain": lambda f, q, k, m: ak.aggregate_fused_plain(
+            f, tr, q, k, fr, dist, m, radii, period=period),
+    }
+    times = {}
+    for impl, fn in impls.items():
+        with torch.no_grad():
+            times[(impl, "fwd")] = median_ms(lambda: fn(f, q, k, means))
+        tin = [x.clone().requires_grad_() for x in (f, q, k, means)]
+
+        def fwdbwd():
+            torch.autograd.grad((fn(*tin) ** 2).sum(), tin)
+        times[(impl, "bwd")] = median_ms(fwdbwd)
+    return times
+
+
+def describe_times(times) -> str:
+    return "; ".join(f"{impl} fwd {times[(impl, 'fwd')]:.4f} ms, fwd+bwd "
+                     f"{times[(impl, 'bwd')]:.4f} ms"
+                     for impl in ("kernel", "factored", "plain"))
+
+
 def run() -> tuple:
     try:
         import torch
@@ -389,7 +692,7 @@ def run() -> tuple:
     if not os.path.isdir(os.path.join(ROOT, "pigs_tpu_torch")):
         raise SmokeFailure(f"pigs_tpu_torch/ not found beside {__file__}: run "
                            "from a checkout of the repo")
-    for path in (FIXTURE, TRAIN_FIXTURE):
+    for path in (FIXTURE, TRAIN_FIXTURE, NS_FIXTURE, NS_DATA):
         check(os.path.exists(path), f"fixture {path} not found")
     sys.path.insert(0, ROOT)
 
@@ -398,6 +701,7 @@ def run() -> tuple:
     from pigs_tpu_torch.convert import load_fixture
     from pigs_tpu_torch.models.model import make_initial_state, make_network
     from pigs_tpu_torch.models.state import covariance_of
+    from pigs_tpu_torch.ops import aggregate_kernel as ak
     from pigs_tpu_torch.ops import mixture_kernel as mk
     from pigs_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                  save_checkpoint)
@@ -414,9 +718,12 @@ def run() -> tuple:
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    infos = mk.build()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(mk.build), pool.submit(ak.build)]
+        infos = {**builds[0].result(), **builds[1].result()}
     print(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
-          "(both sources at once)", flush=True)
+          "(all four sources at once)", flush=True)
     for name, info in infos.items():
         print(f"[device] {name}: {info.seconds:.2f} s "
               f"({'compiled' if info.compiled else 'cached'}: {info.path})",
@@ -714,35 +1021,23 @@ def run() -> tuple:
     ti.reset()
     fn = one_step("auto")
     fn()
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e6
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(device_us(e) for e in events)
-    kernels = sum(e.count for e in events)
-    top = sorted(events, key=lambda e: -device_us(e))[:8]
-    print(f"[profile] 5 pn_steps: {kernels / 5:.0f} device ops per step, "
-          f"device busy {busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms wall "
-          f"(idle share {1 - busy / wall:.3f} under the profiler; {card})",
-          flush=True)
-    for e in top:
-        print(f"  {device_us(e) / 1e3 / 5:.4f} ms/step "
-              f"x{e.count // 5} {e.key[:90]}", flush=True)
+    profile_ms(lambda: [fn() for _ in range(5)], 5, "pn_steps", card)
 
     _, evo = rollout(cfg, network, n_steps=steps, res=res, dt=dt, device=dev)
     print(f"[times] rollout {steps} steps at {res}x{res}: {evo * 1e3:.2f} ms "
           f"({evo * 1e3 / steps:.3f} ms/step; {card})", flush=True)
+
+    # 9. the NS rollout, counted
+    ns = ns_phase(dev, mk, card)
+    counts["ns"] = ns["counts"]
+
+    # 10. K4/K5 at the real aggregation inputs, counted, then timed
+    ti.reset()
+    agg = aggregate_phase(dev, ak, card, [
+        ("flagship t=0", cfg, network, state0),
+        ("training fixture", ti.cfg, ti.network, ti.state),
+        ("NS t=0", ns["cfg"], ns["network"], ns["state0"]),
+        ("NS step 25", ns["cfg"], ns["network"], ns["state25"])])
 
     def shapes_of(name, table):
         return {label: t for (n, label), t in table.items() if n == name}
@@ -771,10 +1066,38 @@ def run() -> tuple:
             "plain_ms": sum(plain_by_shape.values()),
             "ms_by_shape": by_shape, "plain_ms_by_shape": plain_by_shape,
         })
+    for name, line, key in (("aggregate_fwd", 246, "fwd"),
+                            ("aggregate_bwd", 287, "bwd")):
+        # By shape: each real input (str) and each perf_suite size (int);
+        # ms, plain_ms and factored_ms sum the perf_suite sizes.
+        t = {impl: {(f"n={at}" if isinstance(at, int) else at): ms
+                    for (i, k, at), ms in agg["times"].items()
+                    if i == impl and k == key}
+             for impl in ("kernel", "plain", "factored")}
+        sums = {impl: sum(agg["times"][(impl, key, n)]
+                          for n in PERF_SUITE_SIZES) for impl in t}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"pigs_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"pigs_tpu/ops/pallas_aggregate.py:{line}",
+            "launches": agg["launches"][key],
+            "launches_by_path": {"aggregate": agg["launches"][key]},
+            "on_main_path": False,
+            "max_abs_err": agg["max_abs"][key],
+            "ms": sums["kernel"], "plain_ms": sums["plain"],
+            "factored_ms": sums["factored"],
+            "timed": ("forward" if key == "fwd" else "forward+backward")
+                     + ", ms sums benchmarks/perf_suite.py's sizes",
+            "ms_by_shape": t["kernel"], "plain_ms_by_shape": t["plain"],
+            "factored_ms_by_shape": t["factored"],
+        })
     return {"kernels": kernels,
             "pn_step_ms": med, "epoch_ms": emed, "rollout_ms": evo * 1e3,
             "ema_rollout_mean_rel_l2": ema_metrics["mean_rel_norm"],
-            "epoch_first_mask_divergence": first}, card
+            "epoch_first_mask_divergence": first,
+            "ns_rollout_ms": ns["ms"],
+            "ns_mean_rel_l2": ns["mean_rel_l2"],
+            "aggregate_pairs_differing": agg["differ"]}, card
 
 
 def main() -> int:

@@ -6,16 +6,18 @@ the parity tests compare like with like.  The package imports ``torch`` and
 numpy only; the JAX package is the reference it is tested against.
 
 Layer map (the slices so far: PN training and rollout of the Burgers
-flagship):
+flagship, the Navier-Stokes rollout):
 
   ops       mixture evaluation (CUDA kernels K1 forward, K2/K3 backward, and
             their plain twins), dense oracle, neighbour aggregation (plain
-            torch matmuls)
+            torch matmuls on the network's path; the fused form, CUDA
+            kernels K4 forward and K5 backward, beside it)
   gaussians covariance / conic construction, 2x2 eigen-decomposition
   models    padded mixture state with prune/split, dynamics network, forward
             step, sampling, losses, adaptive split, randomized ICs
   train     training (optax-style Adam, epochs, curriculum, EMA,
-            checkpoints), rollout and its metrics
+            checkpoints), rollout and its metrics, the NS dataset and the
+            vorticity rollout
   convert   flax parameter trees and optax Adam states -> torch
 """
 

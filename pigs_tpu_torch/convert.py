@@ -167,10 +167,11 @@ def load_train_fixture(path: str, device=None, dtype=torch.float32):
 def load_fixture(path: str, device=None):
     """Load an exported rollout fixture (``scripts/export_torch_fixture.py``).
 
-    Returns ``(cfg, network, data)``: the model config, the dynamics network
-    with the fixture's parameters and frequencies in float32 on ``device``,
-    and the file's remaining arrays (``jax_frames``, ``fd_frames``, ...) as
-    numpy.
+    Returns ``(cfg, network, data)``: the model config (with the fixture's
+    split criteria where it names them, as the NS fixture does), the
+    dynamics network with the fixture's parameters and frequencies in
+    float32 on ``device``, and the file's remaining arrays (``jax_frames``,
+    ``fd_frames``, ...) as numpy.
     """
     from pigs_tpu_torch.models.model import ModelConfig, make_network
     from pigs_tpu_torch.pde import IntegrationRule, Problem
@@ -179,9 +180,12 @@ def load_fixture(path: str, device=None):
         data = {k: z[k] for k in z.files}
     flat = {k: data.pop(k) for k in list(data) if k.startswith("params/")}
     nx = int(data["config_nx"])
+    criteria = data.get("config_split_criteria")
     cfg = ModelConfig.create(Problem[str(data["config_problem"])],
                              IntegrationRule.TRAPEZOID, nx=nx, ny=nx, d=2,
-                             scale=1.0, capacity=int(data["config_capacity"]))
+                             scale=1.0, capacity=int(data["config_capacity"]),
+                             split_criteria=("value" if criteria is None
+                                             else str(criteria)))
     network = make_network(cfg, frequencies=torch.from_numpy(
         data["frequencies"]), device=device)
     network.load_state_dict(params_from_flax(flat))

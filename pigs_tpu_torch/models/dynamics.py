@@ -18,8 +18,8 @@ from torch import nn
 from pigs_tpu_torch.ops.aggregate import aggregate_neighbors_factored
 
 __all__ = ["MLP", "LatentTransform", "TransformNet", "InputTransform",
-           "DynamicsNetwork", "Deltas", "default_frequencies", "LATENT_SIZE",
-           "ATTENTION_HEADS", "EMBEDDING_SIZE"]
+           "DynamicsNetwork", "Deltas", "HeadInputs", "default_frequencies",
+           "LATENT_SIZE", "ATTENTION_HEADS", "EMBEDDING_SIZE"]
 
 LATENT_SIZE = 16
 L1_SIZE = 16
@@ -51,6 +51,20 @@ class Deltas(NamedTuple):
     dtransforms: torch.Tensor      # (N, T)
     du: torch.Tensor               # (N, c)
     head_magnitudes: torch.Tensor  # (heads,)
+
+
+class HeadInputs(NamedTuple):
+    """What one head's neighbour aggregation takes besides the means and the
+    neighbourhood: ``features (N, L)``, ``transform (L, L)`` (the raw
+    parameter minus 1), ``queries``/``keys (N, K)``, ``frequencies (F,)``
+    and ``distance_transform (L, 2E)`` (minus 1)."""
+
+    features: torch.Tensor
+    transform: torch.Tensor
+    queries: torch.Tensor
+    keys: torch.Tensor
+    frequencies: torch.Tensor
+    distance_transform: torch.Tensor
 
 
 class MLP(nn.Module):
@@ -202,10 +216,11 @@ class DynamicsNetwork(nn.Module):
                 p.copy_(2.0 * torch.rand(p.shape, generator=generator,
                                          dtype=p.dtype, device=p.device))
 
-    def forward(self, means, full_cov, u, boundaries, sample_u, sample_ux,
-                sample_uxx, sample_pde, active, nbr_mask,
-                period: Optional[float] = None) -> Deltas:
-        d = self.d
+    def aggregation_inputs(self, means, full_cov, u, boundaries, sample_u,
+                           sample_ux, sample_uxx, sample_pde, active):
+        """The per-Gaussian features and, for each head, the inputs of its
+        neighbour aggregation, built from the network's own submodules;
+        :meth:`forward` aggregates exactly these."""
         dtype = means.dtype
         _, t_cov, t_u, t_sample_u, t_ux, t_uxx, t_pde = self.input_transform(
             means, full_cov, u, boundaries, sample_u, sample_ux, sample_uxx,
@@ -215,17 +230,26 @@ class DynamicsNetwork(nn.Module):
              t_uxx, t_pde], dim=-1)
         features = self.input_projection(t_params)
         frequencies = self.frequencies.to(dtype)
+        heads = [HeadInputs(
+            features, (getattr(self, f"transform_{h}") - 1.0).to(dtype),
+            self.query[h](features), self.key[h](features), frequencies,
+            (getattr(self, f"distance_transform_{h}") - 1.0).to(dtype))
+            for h in range(ATTENTION_HEADS)]
+        return features, heads
 
+    def forward(self, means, full_cov, u, boundaries, sample_u, sample_ux,
+                sample_uxx, sample_pde, active, nbr_mask,
+                period: Optional[float] = None) -> Deltas:
+        d = self.d
+        dtype = means.dtype
+        features, heads = self.aggregation_inputs(
+            means, full_cov, u, boundaries, sample_u, sample_ux, sample_uxx,
+            sample_pde, active)
         all_features = [features]
         magnitudes = []
-        for h in range(ATTENTION_HEADS):
-            transform = getattr(self, f"transform_{h}") - 1.0
-            distance_transform = getattr(self, f"distance_transform_{h}") - 1.0
-            agg = aggregate_neighbors_factored(
-                features, transform.to(dtype), self.query[h](features),
-                self.key[h](features), frequencies,
-                distance_transform.to(dtype), means=means, mask=nbr_mask,
-                period=period)
+        for head in heads:
+            agg = aggregate_neighbors_factored(*head, means=means,
+                                               mask=nbr_mask, period=period)
             magnitudes.append(torch.mean(agg ** 2))
             all_features.append(agg)
 

@@ -31,7 +31,8 @@ from pigs_tpu_torch.pde import (IntegrationRule, PDECoefficients, Problem,
 
 __all__ = ["LossWeights", "ModelConfig", "StepFields", "Losses",
            "make_network", "make_initial_state", "grid_state_dynamic",
-           "randomize_state_dynamic", "sample_fields", "forward_step",
+           "randomize_state_dynamic", "sample_fields", "network_inputs",
+           "forward_step",
            "adaptive_split", "peak_vorticity_contribution", "compute_loss"]
 
 
@@ -343,11 +344,13 @@ def sample_fields(cfg: ModelConfig, state: MixtureState, samples: torch.Tensor,
                       wxx=wxx)
 
 
-def forward_step(cfg: ModelConfig, network: DynamicsNetwork,
-                 state: MixtureState, t: float = 0.0
-                 ) -> Tuple[MixtureState, Deltas]:
-    """One dynamics timestep: sample the mixture at the means, predict the
-    deltas, and apply them to the interior Gaussians."""
+def network_inputs(cfg: ModelConfig, state: MixtureState, t: float = 0.0
+                   ) -> tuple:
+    """The dynamics network's arguments at ``state``, as
+    :func:`forward_step` passes them: ``(means, full_cov, u, boundaries,
+    sample_u, sample_ux, sample_uxx, sample_pde, active, nbr_mask)``.  The
+    mixture is sampled at the means (order 2, 3 for NS, mask = active)
+    without autograd; the neighbourhood is :func:`neighbor_mask`."""
     ns = cfg.problem == Problem.NAVIER_STOKES
     full_cov, conics = covariance_of(state)
     n = state.capacity
@@ -373,9 +376,16 @@ def forward_step(cfg: ModelConfig, network: DynamicsNetwork,
 
     nbr = neighbor_mask(state.means, full_cov, active=state.active,
                         period=cfg.period)
-    deltas = network(state.means, full_cov, state.u,
-                     state.boundary.to(cfg.dtype), fields.u, sample_ux,
-                     sample_uxx, sample_pde, state.active, nbr, cfg.period)
+    return (state.means, full_cov, state.u, state.boundary.to(cfg.dtype),
+            fields.u, sample_ux, sample_uxx, sample_pde, state.active, nbr)
+
+
+def forward_step(cfg: ModelConfig, network: DynamicsNetwork,
+                 state: MixtureState, t: float = 0.0
+                 ) -> Tuple[MixtureState, Deltas]:
+    """One dynamics timestep: sample the mixture at the means, predict the
+    deltas, and apply them to the interior Gaussians."""
+    deltas = network(*network_inputs(cfg, state, t), cfg.period)
 
     gate = state.interior[:, None].to(cfg.dtype)
     means = state.means + deltas.dmeans * gate

@@ -4,7 +4,9 @@ Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 object with a plain C interface, under ``build/pigs_tpu_torch/`` at the root
 of the checkout, named by a hash of its sources and flags, so an edited
 source builds anew and an unchanged one loads at once.  Only the sources in
-``ops/csrc/`` are compiled; a failed build raises with the compiler's output.
+``ops/csrc/`` are compiled; the headers there (``*.cuh``) count towards every
+hash, since any source may include them.  A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -54,8 +56,10 @@ def load_library(name: str, sources: tuple) -> tuple:
     build of this exact content exists, load it, and return
     ``(ctypes.CDLL, BuildInfo)``."""
     paths = [os.path.join(CSRC, s) for s in sources]
+    headers = sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC)
+                     if h.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")

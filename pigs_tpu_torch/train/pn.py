@@ -17,7 +17,10 @@ the per-step losses come back to the host once per epoch.  The network's
 parameters live in the ``DynamicsNetwork`` and are updated in place.
 
 Rollout: ``rollout`` renders then evolves, optionally densifying the first
-steps with the training-time split.
+steps with the training-time split.  Navier-Stokes: ``NSDataset`` holds the
+stored curl-fit initial states and the solver's vorticity frames, and
+``rollout_vorticity`` evolves a state and renders its vorticity, frame 0
+included, as scripts/validate_ns.py does.
 """
 
 from __future__ import annotations
@@ -33,22 +36,66 @@ from pigs_tpu_torch.models.model import (Losses, ModelConfig, StepFields,
                                          forward_step, make_initial_state,
                                          make_network, randomize_state_dynamic,
                                          sample_fields)
-from pigs_tpu_torch.models.state import MixtureState, covariance_of
+from pigs_tpu_torch.models.state import MixtureState, covariance_of, init_state
 from pigs_tpu_torch.ops.mixture import eval_mixture
 from pigs_tpu_torch.pde import Problem
 from pigs_tpu_torch.train.optim import AdamState, adam_init, adam_update
 from pigs_tpu_torch.utils.sampling import (boundary_band_samples,
                                            collocation_samples, image_samples)
 
-__all__ = ["TrainConfig", "TrainResult", "EpochResult", "init_training",
-           "pn_step", "pn_loss_grads", "pn_epoch", "train_epoch", "train", "rollout",
-           "rollout_frames", "rollout_metrics"]
+__all__ = ["TrainConfig", "TrainResult", "EpochResult", "NSDataset",
+           "init_training", "pn_step", "pn_loss_grads", "pn_epoch",
+           "train_epoch", "train", "rollout", "rollout_frames",
+           "rollout_metrics", "vorticity_samples", "render_vorticity",
+           "rollout_vorticity"]
+
+
+class NSDataset(NamedTuple):
+    """Stored Navier-Stokes initial states (per-trajectory curl fits) and the
+    solver's vorticity frames, loaded from ``.npz`` by :meth:`load`.
+
+    Shapes: means (K, N0, d), u (K, N0, c), scaling (K, N0, d),
+    transforms (K, N0, T), frames (K, res, res, T) -- vorticity per
+    timestep in the frames' [y, x] layout.
+    """
+
+    means: torch.Tensor
+    u: torch.Tensor
+    scaling: torch.Tensor
+    transforms: torch.Tensor
+    frames: torch.Tensor
+
+    @staticmethod
+    def load(path: str, device=None) -> "NSDataset":
+        with np.load(path) as z:
+            return NSDataset(*(torch.from_numpy(z[k]).to(device) for k in
+                               ("means", "u", "scaling", "transforms",
+                                "frames")))
+
+    def state_for(self, cfg: ModelConfig, index: int) -> MixtureState:
+        """Trajectory ``index``'s initial Gaussians in a padded state of
+        ``cfg.capacity`` slots, in ``cfg.dtype``."""
+        return init_state(cfg.capacity, *(x[index].to(cfg.dtype) for x in
+                                          (self.means, self.scaling,
+                                           self.transforms, self.u)))
+
+    def recon_target(self, index: int, timestep: int,
+                     samples: torch.Tensor) -> torch.Tensor:
+        """The vorticity frame of ``timestep`` (the last one past the end)
+        read at the pixels that hold ``samples`` in [-1, 1]^2."""
+        frame = self.frames[index, :, :,
+                            min(timestep, self.frames.shape[-1] - 1)]
+        res = frame.shape[0]
+        coords = torch.clamp(((samples + 1.0) / 2.0 * res).to(torch.int32),
+                             0, res - 1).long()
+        return frame[coords[:, 1], coords[:, 0]]
 
 
 class TrainConfig(NamedTuple):
     """The JAX package's training knobs with the same defaults.  Not in this
-    port yet: ``noise_std > 0``, ``adaptive_sampling > 0`` and the NS
-    dataset (each raises); ``epochs_per_dispatch`` has no counterpart."""
+    port yet: ``noise_std > 0``, ``adaptive_sampling > 0`` and training on
+    the NS dataset (each raises); ``epochs_per_dispatch`` has no
+    counterpart."""
 
     n_epochs: int = 5000
     n_samples: int = 1024
@@ -272,8 +319,9 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
                                                  save_checkpoint)
     if ns_data is not None:
         raise NotImplementedError(
-            "training on the NS dataset is not ported yet (ROADMAP item 9, "
-            "the NS slice)")
+            "training on the NS dataset (the reconstruction loss) is not "
+            "ported yet (ROADMAP queue 1, item 1); NSDataset and the NS "
+            "rollout are")
     _not_ported(tcfg)
     network, opt_state = init_training(cfg, tcfg, device)
     names = [k for k, _ in network.named_parameters()]
@@ -406,6 +454,44 @@ def rollout(cfg: ModelConfig, network, n_steps: int = 50, res: int = 64,
     sync()
     evo_time = time.perf_counter() - start
     return frames.cpu().numpy(), evo_time
+
+
+def vorticity_samples(res: int, dtype=torch.float32, device=None
+                      ) -> torch.Tensor:
+    """The ``res x res`` pixel centres of [-1, 1]^2 as ``(res*res, 2)``
+    [x, y] samples, x the slow axis."""
+    centers = ((torch.arange(res, dtype=dtype, device=device) + 0.5) / res
+               * 2.0 - 1.0)
+    gx, gy = torch.meshgrid(centers, centers, indexing="ij")
+    return torch.stack([gx, gy], dim=-1).reshape(-1, 2)
+
+
+def render_vorticity(cfg: ModelConfig, state: MixtureState,
+                     samples: torch.Tensor, res: int) -> torch.Tensor:
+    """The vorticity ``w = d(u_y)/dx - d(u_x)/dy`` of the mixture (order 1,
+    mask = active, the config's period) at :func:`vorticity_samples`, as a
+    ``(res, res)`` frame in [y, x] layout."""
+    _, conics = covariance_of(state)
+    out = eval_mixture(state.means, conics, state.u, samples, order=1,
+                       mask=state.active, period=cfg.period,
+                       impl=cfg.mixture_impl)
+    w = out.ux[:, 0, 1] - out.ux[:, 1, 0]
+    return w.reshape(res, res).T
+
+
+def rollout_vorticity(cfg: ModelConfig, network, state: MixtureState,
+                      n_steps: int, res: int) -> torch.Tensor:
+    """The NS rollout of scripts/validate_ns.py with densify off: frame 0
+    rendered from ``state``, then ``n_steps`` of evolve-then-render (every
+    step at t = 0, as the script calls it).  Returns ``(n_steps + 1, res,
+    res)`` vorticity frames on the state's device."""
+    samples = vorticity_samples(res, cfg.dtype, state.means.device)
+    with torch.inference_mode():
+        frames = [render_vorticity(cfg, state, samples, res)]
+        for _ in range(n_steps):
+            state, _ = forward_step(cfg, network, state)
+            frames.append(render_vorticity(cfg, state, samples, res))
+        return torch.stack(frames)
 
 
 def rollout_metrics(frames: np.ndarray, ground_truth: np.ndarray):

@@ -39,6 +39,24 @@ and runs the JAX package in float64 on the CPU from there:
   epoch_active          (steps, capacity) active masks after each step
   epoch_params/...      the parameters after the epoch (float64)
 
+``--kind ns`` restores the EMA parameters of the Navier-Stokes checkpoint
+(``artifacts/ns_vorttrain_ckpt_20000``: NAVIER_STOKES, TRAPEZOID, nx 20,
+capacity 640, split criteria "vorticity"), rolls out the held-out (last)
+trajectory of ``artifacts/ns_data_8traj.npz`` with the JAX package on the
+CPU exactly as scripts/validate_ns.py does with densify off (the vorticity
+w = d(u_y)/dx - d(u_x)/dy rendered at order 1 on the 64x64 pixel centres,
+frame 0 plus 50 steps), and writes:
+
+  params/..., frequencies, config_* (and config_split_criteria,
+                        config_held_out: the trajectory's index)
+  jax_frames            (steps + 1, res, res) JAX-CPU vorticity frames, [y, x]
+  jax_mean_rel_l2       their mean rel-L2 against the dataset's frames
+  jax_t0_rel_l2         frame 0's rel-L2 (the curl fit's error)
+  jax_per_step_rel_l2   (steps + 1,) the per-frame values
+
+The ground-truth frames stay in the dataset file; the fixture does not copy
+them.
+
 The port (pigs_tpu_torch) loads these files on a machine without JAX.
 
 Examples:
@@ -47,6 +65,7 @@ Examples:
       --out artifacts/burgers_ns4096_ema2_torch.npz
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind train \
       --out artifacts/burgers_ns4096_ema2_train_torch.npz
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns
 """
 
 import argparse
@@ -282,15 +301,102 @@ def _export_train(ckpt: str, out: str):
     print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 
+def ns_config():
+    """scripts/validate_ns.py's config for the NS checkpoint: nx 20,
+    capacity ((20*20 + 127) // 128 + 1) * 128 = 640, vorticity criteria."""
+    from pigs_tpu.models.model import ModelConfig
+    from pigs_tpu.pde import IntegrationRule, Problem
+    return ModelConfig.create(Problem.NAVIER_STOKES, IntegrationRule.TRAPEZOID,
+                              nx=NX, ny=NX, d=2, scale=1.0, capacity=640,
+                              split_criteria="vorticity")
+
+
+def export_ns(ckpt: str, data_path: str, out: str):
+    """Write the NS rollout fixture (see the module docstring)."""
+    with float32_default_normal():
+        _export_ns(ckpt, data_path, out)
+
+
+def _export_ns(ckpt: str, data_path: str, out: str):
+    from functools import partial
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from pigs_tpu.models.model import covariance_of, forward_step
+    from pigs_tpu.ops.mixture import eval_mixture
+    from pigs_tpu.train.pn import NSDataset, rollout_metrics
+
+    cfg = ns_config()
+    network, params = restore_ema_params(ckpt, cfg)
+    flat = flatten_params(params)
+    data = NSDataset.load(data_path)
+    index = int(data.means.shape[0]) - 1
+
+    # scripts/validate_ns.py's render: pixel centres, [x, y] samples, the
+    # frame transposed to [y, x].
+    centers = (jnp.arange(RES) + 0.5) / RES * 2.0 - 1.0
+    gx, gy = jnp.meshgrid(centers, centers, indexing="ij")
+    samples = jnp.stack([gx, gy], axis=-1).reshape(-1, 2)
+
+    def render_w(state):
+        _, conics = covariance_of(state)
+        out = eval_mixture(state.means, conics, state.u, samples, order=1,
+                           mask=state.active, period=cfg.period,
+                           diff_samples=False)
+        w = out.ux[:, 0, 1] - out.ux[:, 1, 0]
+        return w.reshape(RES, RES).T
+
+    state = data.state_for(cfg, index)
+    step = jax.jit(partial(forward_step, cfg, network))
+    render = jax.jit(render_w)
+    frames = [np.asarray(render(state))]
+    for _ in range(STEPS):
+        state, _ = step(params, state)
+        frames.append(np.asarray(render(state)))
+    frames = np.stack(frames)
+    gt = np.asarray(data.frames[index]).transpose(2, 0, 1)
+    m = rollout_metrics(frames, gt)
+    fit = rollout_metrics(frames[:1], gt[:1])
+    print(f"JAX-CPU held-out trajectory {index}: mean rel-L2 "
+          f"{m['mean_rel_norm']:.6f}, t=0 {fit['mean_rel_norm']:.6f}",
+          flush=True)
+    np.savez_compressed(
+        out, **flat, frequencies=frequencies_of(cfg),
+        config_problem=np.asarray(cfg.problem.name),
+        config_nx=np.asarray(NX), config_capacity=np.asarray(cfg.capacity),
+        config_dt=np.asarray(DT), config_res=np.asarray(RES),
+        config_steps=np.asarray(STEPS),
+        config_split_criteria=np.asarray(cfg.split_criteria),
+        config_held_out=np.asarray(index),
+        jax_frames=frames.astype(np.float32),
+        jax_mean_rel_l2=np.asarray(m["mean_rel_norm"]),
+        jax_t0_rel_l2=np.asarray(fit["mean_rel_norm"]),
+        jax_per_step_rel_l2=np.asarray(m["per_step_rel_norm"]))
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--kind", choices=["rollout", "train"], default="rollout")
-    p.add_argument("--ckpt", default="artifacts/burgers_ns4096_ema2_ckpt_30000")
+    p.add_argument("--kind", choices=["rollout", "train", "ns"],
+                   default="rollout")
+    p.add_argument("--ckpt", default=None,
+                   help="default: artifacts/burgers_ns4096_ema2_ckpt_30000 "
+                        "(rollout, train) or artifacts/ns_vorttrain_ckpt_20000 "
+                        "(ns)")
+    p.add_argument("--ns-data", default="artifacts/ns_data_8traj.npz")
     p.add_argument("--out", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_torch.npz "
-                        "(rollout) or ..._train_torch.npz (train)")
+                        "(rollout), ..._train_torch.npz (train) or "
+                        "artifacts/ns_vorttrain_torch.npz (ns)")
     args = p.parse_args()
+    if args.kind == "ns":
+        export_ns(args.ckpt or "artifacts/ns_vorttrain_ckpt_20000",
+                  args.ns_data, args.out or "artifacts/ns_vorttrain_torch.npz")
+        return
+    args.ckpt = args.ckpt or "artifacts/burgers_ns4096_ema2_ckpt_30000"
     if args.kind == "train":
         import jax
         jax.config.update("jax_enable_x64", True)
