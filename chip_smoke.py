@@ -11,18 +11,24 @@ Phases, in order; any failure exits non-zero:
                the builds of the CUDA kernels from pigs_tpu_torch/ops/csrc/
                with nvcc for sm_90a, all four sources at once: K1 (mixture
                forward), K2/K3 (its backward, Gaussian and sample side), K4
-               (fused neighbour aggregation) and K5 (its backward);
+               (fused neighbour aggregation) and K5 (its backward); each
+               instantiation's registers and spills from ptxas (a K1 or K2
+               instantiation that spills fails);
   2. kernel    K1 against its plain PyTorch twin and the plain path in
                float32 (norm-relative error <= 1e-5 per field) and against
                the plain path in float64 (<= 1e-4), at the two shapes of the
                rollout, a ragged case at orders 0-3, c in {1, 2}, with and
-               without a period, and d=1 through the d=2 embedding;
+               without a period, the same over 5 Gaussians (one slice: no
+               combine pass), and d=1 through the d=2 embedding; two
+               launches on the same ragged or one-slice input bitwise equal;
   3. backward  K2 and K3 against their plain twins in float32 (<= 1e-5) and
                against torch autograd through the float64 dense oracle
                (<= 1e-4, conic gradients symmetrized), at the two training
                shapes (collocation and boundary samples of the training
-               fixture), the ragged cases and d=1; the launch counters rise,
-               and K3 stays idle when the samples need no gradient;
+               fixture), the ragged cases, the same at 20 samples (K2 in one
+               slice) and d=1; the launch counters rise, and K3 stays idle
+               when the samples need no gradient; K2 bitwise equal over two
+               launches on the ragged and one-slice inputs;
   4. rollout   the 50-step rollout of the Burgers flagship at capacity 1664
                from artifacts/burgers_ns4096_ema2_torch.npz: exactly 2 K1
                launches per step, finite frames, frames against the JAX
@@ -43,19 +49,30 @@ Phases, in order; any failure exits non-zero:
                recipe; a checkpoint saved and restored equal; the EMA
                parameters rolled out, mean rel-L2 vs FD within 0.005 of the
                JAX-CPU rollout of the checkpoint;
-  8. times     median of 20 CUDA-event timed runs of K1, K2 and K3 and of
-               their plain twins at the main path's shapes; pn_step and the
-               epoch through the kernels and through the plain path; a
-               profile of training steps (kernels and device idle share);
-               the timed rollout;
+  8. times     K1 at the flagship's four main-path shapes (1664x1664 and
+               4096x1664, orders 2 and 0) and K2/K3 at the two training
+               shapes, each first checked bitwise equal over two launches:
+               device_ms (the profiler's device time per launch of the raw
+               launch function), graph_ms (CUDA events around the replay
+               of a CUDA graph of 100 raw launches, per launch), call_ms
+               (median of 20 event-timed single calls of the public
+               wrapper: the caller's price, host work included), the plain
+               twin's call time, the bound (FLOP, SFU results or bytes at
+               the H100's peaks) and K1/K2's grid, and K1/K2's graph
+               replay with the grid aimed at 2, 4, 6 and 8 blocks per SM
+               (6 is the one the paths run); pn_step and the epoch
+               through the kernels and through the plain path; a profile
+               of training steps (kernels, K1/K2 device time per step,
+               device idle share); the timed rollout;
   9. ns        the Navier-Stokes rollout of the held-out trajectory from
                artifacts/ns_vorttrain_torch.npz and artifacts/
                ns_data_8traj.npz (capacity 640, order 3, c=2, period 2.0):
                exactly 1 + 2 K1 launches per step (frame 0's render, then a
                step and a render), frame 0 <= 1e-5 and steps 1-5 <= 1e-3
                against the JAX frames, mean rel-L2 against the solver's
-               frames within 0.005 of the JAX-CPU value; the timed rollout
-               and a profile of 5 of its steps;
+               frames within 0.005 of the JAX-CPU value; the timed rollout,
+               a profile of 5 of its steps, and K1 at the NS shapes (640x640
+               order 3 and 4096x640 order 1, c=2, periodic), timed as in 8;
  10. aggregate K4 and K5 (the fused neighbour aggregation, forward and
                backward) driven at both heads' real inputs: the flagship's
                initial state, the training fixture's state, and the NS
@@ -66,10 +83,17 @@ Phases, in order; any failure exits non-zero:
                network runs (its error and the number of pairs the two
                neighbour rules decide differently; above 1e-4 a failure
                only when no pair differs); exact K4/K5 launch counts.  Then
-               forward and forward+backward times of K4/K5, the factored
-               path and the plain twin at the real inputs (head 0) and at
-               benchmarks/perf_suite.py's synthetic inputs, n in {512, 1664,
-               4096, 8192}.
+               forward and forward+backward call times of K4/K5, the
+               factored path and the plain twin at the real inputs (head 0)
+               and at benchmarks/perf_suite.py's synthetic inputs, n in
+               {512, 1664, 4096, 8192}; K4 and K5 at the real inputs timed
+               as in 8, the bound counting the neighbour pairs of each
+               input.
+
+The line before the card's is the kernels line: per kernel its launches
+(per path, per training step, per rollout step), errors, device, graph,
+call and plain times and bounds by shape, and library_ms (null: no single
+PyTorch call computes any of these functions).
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the last line is a JSON object with ``ok`` and the device.  Without a CUDA
@@ -103,6 +127,22 @@ STEP_GRAD_TOL = 1e-3     # pn_step flattened gradient, norm-relative
 STEP_UPDATE_TOL = 1e-2   # pn_step parameter update, norm-relative
 EPOCH_TOTAL_TOL = 1e-2   # per-step totals while the split decisions agree
 
+DEVICE_RUNS = 20         # launches in one profiled window (device_ms)
+GRAPH_LAUNCHES = 100     # raw launches captured in one CUDA graph (graph_ms)
+SWEEP_BLOCKS_PER_SM = (2, 4, 6, 8)  # K1/K2 grid targets timed against each other
+# An H100 SXM's peaks per millisecond (NVIDIA's data sheet, at 700 W):
+# float32 outside the tensor cores, special-function results (exp, sin,
+# cos: 132 SMs x 16 a clock x 1.98 GHz) and HBM3 bytes.
+PEAK_FLOP_PER_MS = 67e9
+PEAK_SFU_PER_MS = 4.18e9
+PEAK_BYTES_PER_MS = 3.35e9
+# The device kernels of K1 and K2 by name, as a profile of a step counts
+# them.
+KERNEL_FAMILIES = {"mixture_fwd": ("mixture_fwd", "FwdStore"),
+                   "mixture_bwd_gauss": ("bwd_gauss", "GaussStore")}
+LIBRARY_NOTE = ("no single PyTorch call computes this function; the plain "
+                "twin repeats the kernel's arithmetic step by step")
+
 
 class SmokeFailure(Exception):
     pass
@@ -111,6 +151,55 @@ class SmokeFailure(Exception):
 def check(ok: bool, msg: str):
     if not ok:
         raise SmokeFailure(msg)
+
+
+def reset_counts(mk, ak):
+    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    ak.fwd_launches = ak.bwd_launches = 0
+
+
+def read_counts(mk, ak) -> tuple:
+    """The launch counts of K1, K2, K3, K4 and K5."""
+    return (mk.launches, mk.bwd_gauss_launches, mk.bwd_sample_launches,
+            ak.fwd_launches, ak.bwd_launches)
+
+
+def ptxas_name(mangled: str) -> str:
+    """A mangled kernel name -> ``name<template arguments>``:
+    ``..._18mixture_fwd_kernelILi2ELi1ELi2EEEv...`` ->
+    ``mixture_fwd_kernel<2, 1, 2>``, ``..combine_slices_kernelI...8FwdStore
+    ILi2EEEEEv..`` -> ``combine_slices_kernel<FwdStore, 2>``."""
+    import re
+    found = re.search(r"\d+([a-z_]+kernel)(I.*)?", mangled)
+    if not found:
+        return mangled
+    rest = (found.group(2) or "").split("Ev")[0]
+    store = re.search(r"\d+([A-Za-z]+Store)", rest)
+    args = ([store.group(1)] if store else []) + re.findall(r"Li(\d+)E", rest)
+    return f"{found.group(1)}<{', '.join(args)}>" if args else found.group(1)
+
+
+def ptxas_report(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {kernel<ORDER, C>: {registers,
+    spill_stores, spill_loads}} (bytes), one entry per instantiation."""
+    import re
+    report, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = ptxas_name(entry.group(1))
+            report[current] = {"registers": None, "spill_stores": 0,
+                               "spill_loads": 0}
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and current:
+            report[current]["spill_stores"] = int(spill.group(1))
+            report[current]["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and current:
+            report[current]["registers"] = int(regs.group(1))
+    return report
 
 
 def card_line() -> str:
@@ -270,6 +359,9 @@ def compare_backward(label, means, conics, values, samples, order, mask,
 
 
 def median_ms(fn, runs: int = 20) -> float:
+    """Median CUDA-event time of one call of ``fn`` on an idle card: the
+    caller's price, i.e. the host's work in the call plus the device's
+    (``call_ms``), not a kernel's device time."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -285,6 +377,204 @@ def median_ms(fn, runs: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without return type, namespaces and parameters:
+    ``void (anonymous namespace)::mixture_fwd_kernel<2, 1, 2>(float const*,
+    ...)`` -> ``mixture_fwd_kernel<2, 1, 2>``."""
+    import re
+    head = key.split("(float", 1)[0].split("(int", 1)[0]
+    head = re.sub(r"\(anonymous namespace\)::|\w+::", "", head)
+    return head.replace("void ", "").strip()
+
+
+def profiled_device_ms(launch) -> tuple:
+    """The profiler's device time per call of ``launch``, a raw kernel
+    launch with nothing else on the card, over a window of DEVICE_RUNS
+    calls: each kernel's mean device time times the number of times a call
+    launches it, summed; and, by kernel name, (launches per call, mean ms).
+    The profiler may miss a launch or two of a window, so a total over
+    DEVICE_RUNS would read low; a window in which it saw no kernel at all
+    is taken again, up to three times, and then gives (None, {})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    launch()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(DEVICE_RUNS):
+                launch()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and e.count and device_us(e) > 0]
+        if events:
+            break
+    else:
+        return None, {}
+    kernels = {kernel_name(e.key): (max(1, round(e.count / DEVICE_RUNS)),
+                                    device_us(e) / e.count / 1e3)
+               for e in events}
+    return sum(n * ms for n, ms in kernels.values()), kernels
+
+
+def graph_device_ms(launch) -> float:
+    """Cross-check of the device time: CUDA events around the replay of a
+    CUDA graph that captured GRAPH_LAUNCHES calls of ``launch`` (a raw
+    launch; the host is out of the loop, the gaps between kernels are in),
+    per launch; median of 5 replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    del graph
+    return statistics.median(times)
+
+
+def roofline(flop: float, sfu: float, nbytes: float) -> tuple:
+    """The least time the card could take (ms) and what sets it: float32
+    FLOP at PEAK_FLOP_PER_MS, SFU results at PEAK_SFU_PER_MS or bytes at
+    PEAK_BYTES_PER_MS, whichever takes longest."""
+    times = {"FLOP": flop / PEAK_FLOP_PER_MS, "SFU": sfu / PEAK_SFU_PER_MS,
+             "bytes": nbytes / PEAK_BYTES_PER_MS}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+# FLOP per (sample, Gaussian) pair counted from the arithmetic the mixture
+# kernels run: every add, subtract and multiply once (an FMA as 2),
+# negations free, a product the code forms twice once (nvcc computes it
+# once), and the terms that are zero at the order (adjoint_fields'
+# accumulators start at 0) left out.  The pair geometry (displacement,
+# p = C d, the scaled quadratic form; +8 with the period's wrap); the output
+# weights W_k up to each order (K1's pair_weights; K2 at c=2 shares their
+# polynomials with the adjoint and pays only the K-1 products with g); the
+# adjoint fields K2 runs (adjoint_order0 at order 0, adjoint_fields above)
+# and the part of adjoint_fields K3 keeps (Q, R, A and E_dx, E_dy).
+GEOMETRY_FLOP = 12
+WRAP_FLOP = 8
+WEIGHT_FLOP = (0, 2, 11, 34)
+ADJOINT_FLOP = (10, 35, 60, 121)
+ADJOINT_XY_FLOP = (4, 16, 38, 87)
+
+
+def mixture_bound(name: str, m: int, n: int, order: int, c: int,
+                  periodic: bool) -> tuple:
+    """(bound_ms, what bounds it) of K1 (``mixture_fwd``), K2 or K3 at one
+    shape: every pair's FLOP and one exp, the inputs read once and the
+    outputs written once."""
+    k = (order + 1) * (order + 2) // 2
+    comps = k * c
+    geom = GEOMETRY_FLOP + (WRAP_FLOP if periodic else 0)
+    inputs = 2 * m + (5 + c) * n
+    # r_k = sum over channels of cot_k v: a multiply and c-1 FMAs per k.
+    r = k * (2 * c - 1)
+    if name == "mixture_fwd":
+        flop, nbytes = geom + WEIGHT_FLOP[order] + 2 * comps, inputs + comps * m
+    elif name == "mixture_bwd_gauss":
+        # c=1, the rank-1 route: no r_k, and gv adds A g.
+        gv = 1 if c == 1 else k - 1 + 2 * comps
+        flop = geom + (0 if c == 1 else r) + ADJOINT_FLOP[order] + 5 + gv
+        nbytes = inputs + comps * m + (5 + c) * n
+    else:
+        # c=1: v folded into g, one multiply.
+        flop = geom + (1 if c == 1 else r) + ADJOINT_XY_FLOP[order] + 2
+        nbytes = inputs + comps * m + 2 * m
+    return roofline(m * n * flop, m * n, 4 * nbytes)
+
+
+# FLOP per neighbour pair of the fused aggregation (L = K = 16, F = 6,
+# d = 2, 2E = 50), an FMA as 2.  K4: the logit (2K + 1), alpha (4), the 24
+# angles (3 F d), the gate W_d emb (2 L 2E) and alpha mapped gate (3 L).
+# K5 adds the gradient of W_d (2 L 2E), the gate's derivative contracted
+# with the gate's cotangent (2 L 2E), dalpha (2 L), gq and gk (4 K) and gm
+# (2 L).  Every pair also takes the neighbour test (7), and mapped = W_t f
+# costs 2 L^2 per Gaussian.  SFU: two exps and the sin and cos of 24 angles
+# per neighbour pair.
+AGG_FWD_PAIR_FLOP = 2 * 16 + 1 + 4 + 3 * 12 + 2 * 16 * 50 + 3 * 16
+AGG_BWD_PAIR_FLOP = AGG_FWD_PAIR_FLOP + 2 * (2 * 16 * 50) + 2 * 16 \
+    + 4 * 16 + 2 * 16
+AGG_PAIR_SFU = 2 + 2 * 24
+
+
+def aggregate_bound(name: str, n: int, pairs: int) -> tuple:
+    """(bound_ms, what bounds it) of K4 (``aggregate_fwd``) or K5 at ``n``
+    Gaussians with ``pairs`` neighbour pairs (what these inputs need, not
+    n^2)."""
+    per_pair = AGG_FWD_PAIR_FLOP if name == "aggregate_fwd" else \
+        AGG_BWD_PAIR_FLOP
+    flop = pairs * per_pair + 7 * n * n + 2 * 16 * 16 * n
+    # features, queries, keys (n, 16), means, radii; W_t, freqs, W_d; out.
+    nbytes = n * (3 * 16 + 3) + 16 * 16 + 6 + 16 * 50 + n * 16
+    if name != "aggregate_fwd":   # the cotangent and the seven gradients
+        nbytes += n * 16 + (3 * n * 16 + 16 * 16 + 6 + 16 * 50 + 2 * n)
+    return roofline(flop, pairs * AGG_PAIR_SFU, 4 * nbytes)
+
+
+def time_kernel(launch, call, plain) -> dict:
+    """One kernel at one shape: ``device_ms`` (profiler), ``graph_ms``
+    (graph-replayed events), ``call_ms`` (one call of the public wrapper)
+    and ``plain_ms`` (one call of the plain twin)."""
+    device, kernels = profiled_device_ms(launch)
+    graph = graph_device_ms(launch)
+    return {"device_ms": graph if device is None else device,
+            "device_source": "graph replay (the profiler saw no kernel)"
+                             if device is None else "profiler",
+            "kernels_per_launch": {k: n for k, (n, _) in kernels.items()},
+            "kernel_ms": {k: ms for k, (_, ms) in kernels.items()},
+            "graph_ms": graph, "call_ms": median_ms(call),
+            "plain_ms": median_ms(plain)}
+
+
+def check_deterministic(label: str, launch):
+    """Two launches on the same inputs give the same bits."""
+    import torch
+    first, second = launch(), launch()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"{label}: two launches on the same inputs differ")
+
+
+def describe_kernel_times(name: str, label: str, t: dict, card: str) -> str:
+    kernels = ", ".join(f"{k} x{n} {t['kernel_ms'][k]:.4f} ms"
+                        for k, n in t["kernels_per_launch"].items())
+    text = (f"[times] {name} {label}: device {t['device_ms']:.4f} ms "
+            f"({t['device_source']}; graph replay {t['graph_ms']:.4f} ms), "
+            f"bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; share "
+            f"{t['bound_ms'] / t['device_ms']:.3f}), call {t['call_ms']:.4f} "
+            f"ms, plain twin {t['plain_ms']:.4f} ms; kernels per launch: "
+            f"{kernels}")
+    g = t.get("grid")
+    if g:
+        text += (f"; grid {g['tiles']} tiles x {g['slices']} slices of "
+                 f"{g['slice_len']} = {g['blocks']} blocks, "
+                 f"{g['blocks_per_sm']:.2f} per SM")
+    return f"{text} ({card})"
+
+
 def host_ms(fn) -> float:
     """Wall time of ``fn`` between two device synchronisations."""
     import torch
@@ -293,6 +583,85 @@ def host_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def time_k1(label, mu, con, val, smp, order, mask, period, mk, card) -> dict:
+    """K1 at one main-path input: two raw launches bitwise equal, then its
+    times, bound and grid, and its time against the grid's target."""
+    args = (mu.contiguous(), mk.pack_conics(con).contiguous(),
+            (val * mask.to(val.dtype)[:, None]).contiguous(), smp.contiguous(),
+            order, period)
+    check_deterministic(f"K1 {label}", lambda: mk._launch_fwd(*args))
+    t = time_kernel(lambda: mk._launch_fwd(*args),
+                    lambda: mk.mixture_forward(*args),
+                    lambda: mk.mixture_forward_plain(*args))
+    m, n, c = smp.shape[0], mu.shape[0], val.shape[1]
+    t["bound_ms"], t["bound_by"] = mixture_bound(
+        "mixture_fwd", m, n, order, c, period is not None)
+    t["grid"] = grid_of(mk, mk.fwd_geometry(m, n, mk._sm_count(0)))
+    print(describe_kernel_times("mixture_fwd", label, t, card), flush=True)
+    t["graph_ms_by_blocks_per_sm"] = sweep_grid(
+        "mixture_fwd", label, mk, lambda b: mk.fwd_geometry(m, n,
+                                                            mk._sm_count(0), b),
+        lambda b: mk._launch_fwd(*args, blocks_per_sm=b), card)
+    return t
+
+
+def sweep_grid(name, label, mk, geometry, launch, card) -> dict:
+    """K1 or K2 at one input with the slicing aimed at each of
+    SWEEP_BLOCKS_PER_SM blocks per SM (``mixture_kernel.BLOCKS_PER_SM`` is
+    the one the paths run): the graph-replayed device time per launch by
+    target."""
+    times = {b: graph_device_ms(lambda: launch(b))
+             for b in SWEEP_BLOCKS_PER_SM}
+    print(f"[grid] {name} {label}: " + "; ".join(
+        "{} per SM: {} x {} slices of {} -> {:.4f} ms".format(
+            b, *geometry(b), ms) for b, ms in times.items())
+        + f" (graph replay; {card})", flush=True)
+    return times
+
+
+def grid_of(mk, geometry) -> dict:
+    """A K1 or K2 geometry ``(tiles, slices, slice_len)`` as the kernels
+    line reports it; fails unless it puts 2 blocks on every SM."""
+    tiles, slices, slice_len = geometry
+    sms = mk._sm_count(0)
+    check(tiles * slices >= 2 * sms,
+          f"grid of {tiles} x {slices} blocks is under 2 per SM ({sms} SMs)")
+    return {"blocks": tiles * slices, "blocks_per_sm": tiles * slices / sms,
+            "tiles": tiles, "slices": slices, "slice_len": slice_len}
+
+
+def time_k23(label, packed, smp, order, mk, gen, card) -> dict:
+    """K2 and K3 at one training input (c=1, no period): K2 bitwise
+    deterministic over two raw launches, then both kernels' times and
+    bounds, and K2's time against the grid's target."""
+    import torch
+    m, n = smp.shape[0], packed[0].shape[0]
+    cots = [torch.randn((m, gs), generator=gen).to(smp.device)
+            for gs in (1, 2, 3, 4)[:order + 1]]
+    a = (*packed, smp.contiguous(), cots, order, None)
+    check_deterministic(f"K2 {label}", lambda: mk._launch_bwd_gauss(*a))
+    out = {}
+    for name, launch, call, plain in (
+            ("mixture_bwd_gauss", mk._launch_bwd_gauss,
+             mk.mixture_backward_gauss, mk.mixture_backward_gauss_plain),
+            ("mixture_bwd_sample", mk._launch_bwd_sample,
+             mk.mixture_backward_sample, mk.mixture_backward_sample_plain)):
+        t = time_kernel(lambda: launch(*a), lambda: call(*a),
+                        lambda: plain(*a))
+        t["bound_ms"], t["bound_by"] = mixture_bound(name, m, n, order, 1,
+                                                     False)
+        if name == "mixture_bwd_gauss":
+            t["grid"] = grid_of(mk, mk.gauss_geometry(m, n, mk._sm_count(0)))
+        print(describe_kernel_times(name, label, t, card), flush=True)
+        if name == "mixture_bwd_gauss":
+            t["graph_ms_by_blocks_per_sm"] = sweep_grid(
+                name, label, mk,
+                lambda b: mk.gauss_geometry(m, n, mk._sm_count(0), b),
+                lambda b: mk._launch_bwd_gauss(*a, blocks_per_sm=b), card)
+        out[name] = t
+    return out
 
 
 def rollout_slice_inputs(cfg, state, res):
@@ -419,10 +788,6 @@ def profile_ms(fn, steps: int, label: str, card: str):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(device_us(e) for e in events)
@@ -435,9 +800,20 @@ def profile_ms(fn, steps: int, label: str, card: str):
     for e in top:
         print(f"  {device_us(e) / 1e3 / steps:.4f} ms/step "
               f"x{e.count // steps} {e.key[:90]}", flush=True)
+    families = {}
+    for family, names in KERNEL_FAMILIES.items():
+        mine = [e for e in events if any(s in e.key for s in names)]
+        families[family] = {
+            "device_ms_per_step": sum(device_us(e) for e in mine) / 1e3 / steps,
+            "kernels_per_step": sum(e.count for e in mine) / steps}
+    print(f"[profile] {label}, per step: " + "; ".join(
+        f"{f} {v['device_ms_per_step']:.4f} ms device in "
+        f"{v['kernels_per_step']:g} kernels" for f, v in families.items()),
+        flush=True)
+    return families
 
 
-def ns_phase(dev, mk, card) -> dict:
+def ns_phase(dev, mk, ak, card) -> dict:
     """Phase 9: the NS held-out rollout through K1, counted and checked
     against the fixture's JAX frames and the dataset's solver frames."""
     import numpy as np
@@ -445,22 +821,23 @@ def ns_phase(dev, mk, card) -> dict:
 
     from pigs_tpu_torch.convert import load_fixture
     from pigs_tpu_torch.models.model import forward_step
+    from pigs_tpu_torch.models.state import covariance_of
     from pigs_tpu_torch.train.pn import (NSDataset, rollout_metrics,
-                                         rollout_vorticity)
+                                         rollout_vorticity, vorticity_samples)
     cfg, network, fix = load_fixture(NS_FIXTURE, device=dev)
     data = NSDataset.load(NS_DATA, device=dev)
     index = int(fix["config_held_out"])
     steps, res = int(fix["config_steps"]), int(fix["config_res"])
     state0 = data.state_for(cfg, index)
 
-    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    reset_counts(mk, ak)
     frames = rollout_vorticity(cfg, network, state0, steps, res)
     torch.cuda.synchronize()
-    counts = (mk.launches, mk.bwd_gauss_launches, mk.bwd_sample_launches)
+    counts = read_counts(mk, ak)
     # Frame 0's render, then per step forward_step (order 3 at the means)
     # and the render (order 1 at the 64x64 pixel centres).
-    want = (1 + 2 * steps, 0, 0)
-    print(f"[ns] launches (K1, K2, K3) {counts}, expected {want}: "
+    want = (1 + 2 * steps, 0, 0, 0, 0)
+    print(f"[ns] launches (K1-K5) {counts}, expected {want}: "
           f"{(counts[0] - 1) // steps} K1 per step", flush=True)
     check(counts == want, f"NS rollout launches {counts} != {want}")
     frames = frames.cpu().numpy()
@@ -493,16 +870,30 @@ def ns_phase(dev, mk, card) -> dict:
           f"{ms:.2f} ms ({ms / steps:.3f} ms/step; median of 3, host clock "
           f"with device syncs; {card})", flush=True)
     state25 = state0
+    k1_times = {}
     with torch.inference_mode():
         for _ in range(25):
             state25, _ = forward_step(cfg, network, state25)
-        profile_ms(lambda: rollout_vorticity(cfg, network, state0, 5, res),
-                   5, "NS rollout steps", card)
+        profile = profile_ms(
+            lambda: rollout_vorticity(cfg, network, state0, 5, res), 5,
+            "NS rollout steps", card)
+        # K1 at the NS rollout's two shapes (each checked deterministic).
+        _, conics = covariance_of(state0)
+        n = state0.means.shape[0]
+        pixels = vorticity_samples(res, cfg.dtype, dev)
+        for label, (smp, order) in {
+                f"NS {n}x{n} order 3 c=2 periodic (means)": (state0.means, 3),
+                f"NS {pixels.shape[0]}x{n} order 1 c=2 periodic (render)":
+                    (pixels, 1)}.items():
+            k1_times[label] = time_k1(label, state0.means, conics, state0.u,
+                                      smp, order, state0.active, cfg.period,
+                                      mk, card)
     # Out of inference mode, so that the aggregate phase can differentiate.
     state25 = type(state25)(*(x.clone() for x in state25))
     return {"cfg": cfg, "network": network, "state0": state0,
             "state25": state25, "counts": counts, "ms": ms,
-            "mean_rel_l2": metrics["mean_rel_norm"]}
+            "mean_rel_l2": metrics["mean_rel_norm"], "k1_times": k1_times,
+            "profile": profile, "steps": steps}
 
 
 def aggregation_inputs(cfg, network, state):
@@ -623,7 +1014,8 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
     # inputs.  The float32 twin's forward+backward at n=8192 keeps every
     # row chunk's autograd state, ~40 GB: it fits the 80 GB card.
     times = {}
-    for label, period, nbr, x32, _ in prepared[::2]:
+    kernel_times = {"aggregate_fwd": {}, "aggregate_bwd": {}}
+    for label, period, nbr, x32, cot in prepared[::2]:
         f, tr, q, k, fr, dist, means, radii = x32
         real = time_aggregation(ak, f, tr, q, k, fr, dist, means, radii, nbr,
                                 period)
@@ -632,6 +1024,14 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
         print(f"[times] aggregation at {label} (n={f.shape[0]}): "
               + describe_times(real) + f" (median of 20; {card})",
               flush=True)
+        pairs = int(ak.kernel_mask(means, radii, 3.0, period).sum())
+        for name, t in time_k45(ak, x32, cot, period).items():
+            t["bound_ms"], t["bound_by"] = aggregate_bound(name, f.shape[0],
+                                                           pairs)
+            t["pairs"] = pairs
+            print(describe_kernel_times(name, f"{label} ({pairs} neighbour "
+                                        "pairs)", t, card), flush=True)
+            kernel_times[name][label] = t
     for n in PERF_SUITE_SIZES:
         inputs, means, cov = perf_suite_inputs(n, gen, dev)
         active = torch.ones(n, dtype=torch.bool, device=dev)
@@ -644,7 +1044,27 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
               + describe_times(synth) + f" (median of 20; {card})",
               flush=True)
     return {"launches": launches, "max_abs": max_abs, "differ": differ,
-            "times": times}
+            "times": times, "kernel_times": kernel_times}
+
+
+def time_k45(ak, x32, cot, period) -> dict:
+    """K4 and K5 at one real input: device, graph-replay, call and plain
+    times.  K5's call is one autograd backward through the fused Function;
+    its plain twin recomputes the forward, as K5 does."""
+    import torch
+    tin = [x.clone().requires_grad_() for x in x32[:7]]
+    out = ak.aggregate_neighbors_fused(*tin, x32[7], period=period)
+    with torch.no_grad():
+        fwd = time_kernel(
+            lambda: ak._launch_fwd(*x32, 3.0, period),
+            lambda: ak.aggregate_neighbors_fused(*x32, period=period),
+            lambda: ak.aggregate_fused_plain(*x32, period=period))
+        bwd = time_kernel(
+            lambda: ak._launch_bwd(*x32, cot, 3.0, period),
+            lambda: torch.autograd.grad(out, tin, cot, retain_graph=True),
+            lambda: ak.aggregate_fused_backward_plain(*x32, cot,
+                                                      period=period))
+    return {"aggregate_fwd": fwd, "aggregate_bwd": bwd}
 
 
 def time_aggregation(ak, f, tr, q, k, fr, dist, means, radii, mask,
@@ -728,9 +1148,22 @@ def run() -> tuple:
         print(f"[device] {name}: {info.seconds:.2f} s "
               f"({'compiled' if info.compiled else 'cached'}: {info.path})",
               flush=True)
-        for line in info.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+        for kernel, r in ptxas_report(info.log).items():
+            print(f"  ptxas: {kernel}: {r['registers']} registers, "
+                  f"{r['spill_stores']} + {r['spill_loads']} bytes spilled",
+                  flush=True)
+    # Every K1 and K2 instantiation, compiled now or cached, spills nothing.
+    ptxas = {lib: ptxas_report(infos[lib].log)
+             for lib in ("mixture_fwd", "mixture_bwd")}
+    for lib, kernel in (("mixture_fwd", "mixture_fwd_kernel<"),
+                        ("mixture_bwd", "bwd_gauss_partial_kernel<")):
+        found = sum(k.startswith(kernel) for k in ptxas[lib])
+        check(found == 8, f"{lib}: ptxas reported {found} of the 8 "
+              f"{kernel}ORDER, C> instantiations")
+    spilled = [k for r in ptxas.values() for k, v in r.items()
+               if "bwd_sample" not in k
+               and v["spill_stores"] + v["spill_loads"] > 0]
+    check(not spilled, f"K1/K2 instantiations spill: {spilled}")
 
     # 2. K1 vs plain
     cfg, network, data = load_fixture(FIXTURE, device=dev)
@@ -751,6 +1184,30 @@ def run() -> tuple:
                     errs.append(compare_case(
                         f"ragged 1000x333 c={c} order {order} period {period}",
                         mu, con, val, smp, order, mask, period, mk))
+        # Two launches on the same ragged input give the same bits.
+        k1_in = (mu, mk.pack_conics(con).contiguous(),
+                 (val * mask.to(val.dtype)[:, None]).contiguous(), smp)
+        for order in range(4):
+            check_deterministic(f"K1 ragged 1000x333 c=2 order {order}",
+                                lambda: mk._launch_fwd(*k1_in, order, 2.0))
+        # Five Gaussians make one slice: the main pass writes the outputs
+        # itself, with no combine pass.
+        one = torch.Generator().manual_seed(1)
+        check(mk.fwd_geometry(1000, 5, mk._sm_count(0))[1] == 1,
+              "K1 at 1000x5 takes more than one slice")
+        for c in (1, 2):
+            (mu, con, val, smp), mask = random_mixture(one, 5, 1000, c, 2, dev)
+            k1_in = (mu, mk.pack_conics(con).contiguous(),
+                     (val * mask.to(val.dtype)[:, None]).contiguous(), smp)
+            for period in (None, 2.0):
+                for order in range(4):
+                    label = (f"one slice 1000x5 c={c} order {order} period "
+                             f"{period}")
+                    errs.append(compare_case(label, mu, con, val, smp, order,
+                                             mask, period, mk))
+                    check_deterministic(
+                        f"K1 {label}",
+                        lambda: mk._launch_fwd(*k1_in, order, period))
         (mu, con, val, smp), mask = random_mixture(gen, 333, 1000, 1, 1, dev)
         for order in range(4):
             errs.append(compare_case(f"d=1 1000x333 order {order}", mu, con,
@@ -766,8 +1223,8 @@ def run() -> tuple:
     _, conics_t = covariance_of(ti.state)
     st = ti.state
     train_shapes = {
-        "collocation 4096x1664 order 2": (ti.samples, 2),
-        "boundary 4096x1664 order 0": (ti.bc_samples, 0),
+        "4096x1664 order 2 (collocation)": (ti.samples, 2),
+        "4096x1664 order 0 (boundary)": (ti.bc_samples, 0),
     }
     berrs = []
     for label, (smp, order) in train_shapes.items():
@@ -788,6 +1245,33 @@ def run() -> tuple:
                 berrs.append(compare_backward(
                     f"ragged 1000x333 c={c} order {order} period {period}",
                     mu, con, val, smp, order, mask, period, mk, gen))
+    k2_in = (mu, mk.pack_conics(con).contiguous(),
+             (val * mask.to(val.dtype)[:, None]).contiguous(), smp)
+    for order in range(4):
+        k2_cots = [torch.randn((1000, 2 * gs), generator=gen).to(dev)
+                   for gs in (1, 2, 3, 4)[:order + 1]]
+        check_deterministic(f"K2 ragged 1000x333 c=2 order {order}",
+                            lambda: mk._launch_bwd_gauss(*k2_in, k2_cots,
+                                                         order, 2.0))
+    # Twenty samples make one slice: the main pass writes the gradients
+    # itself, with no combine pass.
+    check(mk.gauss_geometry(20, 333, mk._sm_count(0))[1] == 1,
+          "K2 at 20x333 takes more than one slice")
+    for c in (1, 2):
+        (mu, con, val, smp), mask = random_mixture(one, 333, 20, c, 2, dev)
+        k2_in = (mu, mk.pack_conics(con).contiguous(),
+                 (val * mask.to(val.dtype)[:, None]).contiguous(), smp)
+        for period in (None, 2.0):
+            for order in range(4):
+                label = f"one slice 20x333 c={c} order {order} period {period}"
+                berrs.append(compare_backward(label, mu, con, val, smp, order,
+                                              mask, period, mk, one))
+                k2_cots = [torch.randn((20, c * gs), generator=one).to(dev)
+                           for gs in (1, 2, 3, 4)[:order + 1]]
+                check_deterministic(
+                    f"K2 {label}",
+                    lambda: mk._launch_bwd_gauss(*k2_in, k2_cots, order,
+                                                 period))
     (mu, con, val, smp), mask = random_mixture(gen, 333, 1000, 1, 1, dev)
     for order in range(4):
         berrs.append(compare_backward(f"d=1 1000x333 order {order}", mu, con,
@@ -801,14 +1285,13 @@ def run() -> tuple:
 
     # 4. the rollout, counted
     counts = {}
-    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    reset_counts(mk, ak)
     frames = rollout_frames(cfg, network, state0, steps, res, dt)
     torch.cuda.synchronize()
-    counts["rollout"] = (mk.launches, mk.bwd_gauss_launches,
-                         mk.bwd_sample_launches)
-    check(counts["rollout"] == (2 * steps, 0, 0),
-          f"rollout launches (K1, K2, K3) {counts['rollout']}, expected "
-          f"({2 * steps}, 0, 0)")
+    counts["rollout"] = read_counts(mk, ak)
+    check(counts["rollout"][:3] == (2 * steps, 0, 0),
+          f"rollout launches (K1-K5) {counts['rollout']}, expected "
+          f"({2 * steps}, 0, 0, ...)")
     frames = frames.cpu().numpy()
     check(frames.shape == (steps, cfg.channels, res, res),
           f"frames shape {frames.shape}")
@@ -854,19 +1337,18 @@ def run() -> tuple:
     # (the samples need no gradient: no K3); adaptive_split 3 K1 (density,
     # value now, value before); sample_fields of the split state 2 K1.
     ti.reset()
-    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    reset_counts(mk, ak)
     prev = ti.prev_fields(ti.cfg)
     epoch = pn_epoch(ti.cfg, ti.network, ti.opt, ti.state, prev, ti.samples,
                      ti.time_samples, ti.bc_samples, ti.base_lr, ti.epsilon,
                      ti.dt, ti.n_steps, loss_weight_floor=ti.floor,
                      do_split=True, clip_norm=ti.clip, skip_nonfinite=True)
     torch.cuda.synchronize()
-    counts["epoch"] = (mk.launches, mk.bwd_gauss_launches,
-                       mk.bwd_sample_launches)
+    counts["epoch"] = read_counts(mk, ak)
     want_counts = (2 + 8 * ti.n_steps, 2 * ti.n_steps, 0)
-    print(f"[epoch] launches (K1, K2, K3) {counts['epoch']}, expected "
+    print(f"[epoch] launches (K1, K2, K3, K4, K5) {counts['epoch']}, expected "
           f"{want_counts}", flush=True)
-    check(counts["epoch"] == want_counts,
+    check(counts["epoch"][:3] == want_counts,
           f"epoch launches {counts['epoch']} != {want_counts}")
     per_step = epoch.per_step.cpu().numpy()
     check(bool(np.isfinite(per_step).all()), "epoch losses not finite")
@@ -904,14 +1386,13 @@ def run() -> tuple:
         ema_decay=float(ti.data["train_ema_decay"]), clip_norm=ti.clip,
         skip_nonfinite_updates=True, log_step=1)
     log = []
-    mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
+    reset_counts(mk, ak)
     t_train = time.perf_counter()
     result = train(ti.cfg, tcfg, checkpoint_dir=ckpt_dir, resume=True,
                    log_fn=log.append, device=dev)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t_train
-    counts["train"] = (mk.launches, mk.bwd_gauss_launches,
-                       mk.bwd_sample_launches)
+    counts["train"] = read_counts(mk, ak)
     for line in log:
         print(f"  train: {line}", flush=True)
     check(any("Resumed" in line for line in log), "train() did not resume")
@@ -919,7 +1400,7 @@ def run() -> tuple:
         np.isfinite(result.training_loss)), "train() losses")
     check(counts["train"][0] > 0 and counts["train"][1] > 0
           and counts["train"][2] == 0,
-          f"train() launches (K1, K2, K3) {counts['train']}")
+          f"train() launches (K1-K5) {counts['train']}")
     names = ti.names
     save_checkpoint(ckpt_dir, tcfg.n_epochs,
                     dict(result.network.named_parameters()), result.opt_state,
@@ -942,7 +1423,7 @@ def run() -> tuple:
     ema_frames = rollout_frames(cfg, ema_net, state0, steps, res, dt)
     ema_metrics = rollout_metrics(ema_frames.cpu().numpy()[:, 0],
                                   data["fd_frames"])
-    print(f"[train] 3 epochs in {t_train:.2f} s; launches (K1, K2, K3) "
+    print(f"[train] 3 epochs in {t_train:.2f} s; launches (K1-K5) "
           f"{counts['train']}; checkpoint round trip equal; EMA rollout mean "
           f"rel-L2 vs FD {ema_metrics['mean_rel_norm']:.6f} (JAX-CPU "
           f"{jax_mean:.6f})", flush=True)
@@ -951,36 +1432,34 @@ def run() -> tuple:
           f"{jax_mean:.6f}")
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
-    # 8. times
-    ms, plain_ms = {}, {}
+    # 8. times.  K1 at the flagship's four main-path shapes and K2/K3 at
+    # the two training shapes (each also checked bitwise deterministic).
+    times = {"mixture_fwd": {}, "mixture_bwd_gauss": {},
+             "mixture_bwd_sample": {}}
+    ones = torch.ones((st.means.shape[0], 1), device=dev)
+    k1_shapes = {
+        "1664x1664 order 2 (means)": (state0.means, covariance_of(state0)[1],
+                                      state0.u, state0.means, 2,
+                                      state0.active),
+        "1664x1664 order 0 (density, value)": (st.means, conics_t, ones,
+                                               st.means, 0, st.active),
+        "4096x1664 order 2 (collocation)": (st.means, conics_t, st.u,
+                                            ti.samples, 2, st.interior),
+        "4096x1664 order 0 (boundary, render)": (st.means, conics_t, st.u,
+                                                 ti.bc_samples, 0,
+                                                 st.interior),
+    }
     with torch.inference_mode():
-        for label, (mu, con, val, smp, order, mask) in rollout_slice_inputs(
-                cfg, state0, res).items():
-            args = (mu.contiguous(), mk.pack_conics(con).contiguous(),
-                    (val * mask.to(val.dtype)[:, None]).contiguous(),
-                    smp.contiguous(), order, cfg.period)
-            plain_ms[("mixture_fwd", label)] = median_ms(
-                lambda: mk.mixture_forward_plain(*args))
-            ms[("mixture_fwd", label)] = median_ms(
-                lambda: mk.mixture_forward(*args))
+        for label, (mu, con, val, smp, order, mask) in k1_shapes.items():
+            times["mixture_fwd"][label] = time_k1(
+                label, mu, con, val, smp, order, mask, cfg.period, mk, card)
         v_int = (st.u * st.interior.float()[:, None]).contiguous()
         packed = (st.means.contiguous(), mk.pack_conics(conics_t).contiguous(),
                   v_int)
         for label, (smp, order) in train_shapes.items():
-            cots = [torch.randn((smp.shape[0], gs), generator=gen).to(dev)
-                    for gs in (1, 2, 3, 4)[:order + 1]]
-            a = (*packed, smp.contiguous(), cots, order, None)
-            for name, kern, plain in (
-                    ("mixture_bwd_gauss", mk.mixture_backward_gauss,
-                     mk.mixture_backward_gauss_plain),
-                    ("mixture_bwd_sample", mk.mixture_backward_sample,
-                     mk.mixture_backward_sample_plain)):
-                plain_ms[(name, label)] = median_ms(lambda: plain(*a))
-                ms[(name, label)] = median_ms(lambda: kern(*a))
-    for (name, label), t in ms.items():
-        print(f"[times] {name} {label}: kernel {t:.4f} ms, plain "
-              f"{plain_ms[(name, label)]:.4f} ms (median of 20; {card})",
-              flush=True)
+            for name, t in time_k23(label, packed, smp, order, mk, gen,
+                                    card).items():
+                times[name][label] = t
 
     def one_step(impl):
         from pigs_tpu_torch.train.pn import pn_step
@@ -1021,14 +1500,15 @@ def run() -> tuple:
     ti.reset()
     fn = one_step("auto")
     fn()
-    profile_ms(lambda: [fn() for _ in range(5)], 5, "pn_steps", card)
+    step_profile = profile_ms(lambda: [fn() for _ in range(5)], 5,
+                              "pn_steps", card)
 
     _, evo = rollout(cfg, network, n_steps=steps, res=res, dt=dt, device=dev)
     print(f"[times] rollout {steps} steps at {res}x{res}: {evo * 1e3:.2f} ms "
           f"({evo * 1e3 / steps:.3f} ms/step; {card})", flush=True)
 
     # 9. the NS rollout, counted
-    ns = ns_phase(dev, mk, card)
+    ns = ns_phase(dev, mk, ak, card)
     counts["ns"] = ns["counts"]
 
     # 10. K4/K5 at the real aggregation inputs, counted, then timed
@@ -1039,58 +1519,84 @@ def run() -> tuple:
         ("NS t=0", ns["cfg"], ns["network"], ns["state0"]),
         ("NS step 25", ns["cfg"], ns["network"], ns["state25"])])
 
-    def shapes_of(name, table):
-        return {label: t for (n, label), t in table.items() if n == name}
-
-    def launches_of(i):
-        return {path: c[i] for path, c in counts.items()}
-
+    times["mixture_fwd"].update(ns["k1_times"])
+    times.update(agg["kernel_times"])
     kernels = []
-    for i, (name, replaces, max_abs) in enumerate((
-            ("mixture_fwd", "pigs_tpu/ops/pallas_mixture.py:211", k1_abs),
-            ("mixture_bwd_gauss", "pigs_tpu/ops/pallas_mixture.py:313",
+    for i, (name, source, line, max_abs) in enumerate((
+            ("mixture_fwd", "mixture_fwd.cu", "pallas_mixture.py:211",
+             k1_abs),
+            ("mixture_bwd_gauss", "mixture_bwd.cu", "pallas_mixture.py:313",
              bwd_abs),
-            ("mixture_bwd_sample", "pigs_tpu/ops/pallas_mixture.py:364",
-             bwd_abs))):
-        by_shape, plain_by_shape = shapes_of(name, ms), shapes_of(name, plain_ms)
-        source = ("pigs_tpu_torch/ops/csrc/mixture_fwd.cu" if i == 0 else
-                  "pigs_tpu_torch/ops/csrc/mixture_bwd.cu")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": sum(launches_of(i).values()),
-            "launches_by_path": launches_of(i),
-            "on_main_path": i < 2,
-            "max_abs_err": max_abs,
-            "ms": sum(by_shape.values()),
-            "plain_ms": sum(plain_by_shape.values()),
-            "ms_by_shape": by_shape, "plain_ms_by_shape": plain_by_shape,
-        })
-    for name, line, key in (("aggregate_fwd", 246, "fwd"),
-                            ("aggregate_bwd", 287, "bwd")):
-        # By shape: each real input (str) and each perf_suite size (int);
-        # ms, plain_ms and factored_ms sum the perf_suite sizes.
-        t = {impl: {(f"n={at}" if isinstance(at, int) else at): ms
-                    for (i, k, at), ms in agg["times"].items()
-                    if i == impl and k == key}
-             for impl in ("kernel", "plain", "factored")}
-        sums = {impl: sum(agg["times"][(impl, key, n)]
-                          for n in PERF_SUITE_SIZES) for impl in t}
-        kernels.append({
+            ("mixture_bwd_sample", "mixture_bwd.cu", "pallas_mixture.py:364",
+             bwd_abs),
+            ("aggregate_fwd", "aggregate_fwd.cu", "pallas_aggregate.py:246",
+             agg["max_abs"]["fwd"]),
+            ("aggregate_bwd", "aggregate_bwd.cu", "pallas_aggregate.py:287",
+             agg["max_abs"]["bwd"]))):
+        by_path = {path: c[i] for path, c in counts.items()}
+        if i >= 3:
+            by_path["aggregate"] = agg["launches"]["fwd" if i == 3 else "bwd"]
+        t = times[name]
+
+        def col(key):
+            return {label: v[key] for label, v in t.items()}
+        bound_by = col("bound_by")
+        row = {
             "name": name, "route": "cuda",
-            "source": f"pigs_tpu_torch/ops/csrc/{name}.cu",
-            "replaces": f"pigs_tpu/ops/pallas_aggregate.py:{line}",
-            "launches": agg["launches"][key],
-            "launches_by_path": {"aggregate": agg["launches"][key]},
-            "on_main_path": False,
-            "max_abs_err": agg["max_abs"][key],
-            "ms": sums["kernel"], "plain_ms": sums["plain"],
-            "factored_ms": sums["factored"],
-            "timed": ("forward" if key == "fwd" else "forward+backward")
-                     + ", ms sums benchmarks/perf_suite.py's sizes",
-            "ms_by_shape": t["kernel"], "plain_ms_by_shape": t["plain"],
-            "factored_ms_by_shape": t["factored"],
-        })
+            "source": f"pigs_tpu_torch/ops/csrc/{source}",
+            "replaces": f"pigs_tpu/ops/{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_train_step": counts["epoch"][i] / ti.n_steps,
+            "launches_per_rollout_step": {
+                "flagship": counts["rollout"][i] / steps,
+                "ns": counts["ns"][i] / ns["steps"]},
+            "on_main_path": any(counts[p][i] for p in ("rollout", "epoch",
+                                                       "ns")),
+            "max_abs_err": max_abs,
+            "timed": "ms (device), call_ms, plain_ms and bound_ms sum the "
+                     "shapes of the *_by_shape fields",
+            "ms": sum(col("device_ms").values()),
+            "call_ms": sum(col("call_ms").values()),
+            "plain_ms": sum(col("plain_ms").values()),
+            "bound_ms": sum(col("bound_ms").values()),
+            "bound_by": ("bytes" if set(bound_by.values()) == {"bytes"}
+                         else "operations"),
+            "library_ms": None, "library_note": LIBRARY_NOTE,
+            "device_ms_by_shape": col("device_ms"),
+            "graph_ms_by_shape": col("graph_ms"),
+            "call_ms_by_shape": col("call_ms"),
+            "plain_ms_by_shape": col("plain_ms"),
+            "bound_ms_by_shape": col("bound_ms"),
+            "bound_by_shape": bound_by,
+            "share_of_bound_by_shape": {label: v["bound_ms"] / v["device_ms"]
+                                        for label, v in t.items()},
+            "device_ms_source_by_shape": col("device_source"),
+            "kernels_per_launch_by_shape": col("kernels_per_launch"),
+            "kernel_ms_by_shape": col("kernel_ms"),
+        }
+        if "grid" in next(iter(t.values())):
+            row["grid_by_shape"] = col("grid")
+            row["graph_ms_by_blocks_per_sm_by_shape"] = col(
+                "graph_ms_by_blocks_per_sm")
+        if i < 3:
+            lib = "mixture_fwd" if i == 0 else "mixture_bwd"
+            row["ptxas"] = {k: v for k, v in ptxas[lib].items()
+                            if (i == 2) == k.startswith("bwd_sample")}
+        if name in step_profile:
+            row["device_ms_per_pn_step"] = \
+                step_profile[name]["device_ms_per_step"]
+        if i >= 3:
+            key = "fwd" if i == 3 else "bwd"
+            row["pairs_by_shape"] = col("pairs")
+            row["perf_suite_timed"] = ("forward" if i == 3 else
+                                       "forward+backward") + \
+                ", one call each (call time)"
+            row["perf_suite_ms_by_size"] = {
+                impl: {n: agg["times"][(impl, key, n)]
+                       for n in PERF_SUITE_SIZES}
+                for impl in ("kernel", "factored", "plain")}
+        kernels.append(row)
     return {"kernels": kernels,
             "pn_step_ms": med, "epoch_ms": emed, "rollout_ms": evo * 1e3,
             "ema_rollout_mean_rel_l2": ema_metrics["mean_rel_norm"],

@@ -5,8 +5,10 @@ object with a plain C interface, under ``build/pigs_tpu_torch/`` at the root
 of the checkout, named by a hash of its sources and flags, so an edited
 source builds anew and an unchanged one loads at once.  Only the sources in
 ``ops/csrc/`` are compiled; the headers there (``*.cuh``) count towards every
-hash, since any source may include them.  A failed build raises with the
-compiler's output.
+hash, since any source may include them.  The compiler's report (ptxas's
+registers and spills) is kept beside each library as ``<library>.log``, so
+a cached build reports it too.  A failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -63,9 +65,10 @@ def load_library(name: str, sources: tuple) -> tuple:
         with open(p, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    compiled, log = False, ""
+    log_path = f"{out}.log"
+    compiled = False
     t0 = time.perf_counter()
-    if not os.path.exists(out):
+    if not (os.path.exists(out) and os.path.exists(log_path)):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
@@ -74,7 +77,13 @@ def load_library(name: str, sources: tuple) -> tuple:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name} "
                                f"(rc {proc.returncode}):\n{log}")
+        # The report first: a library on disk always has its report.
+        with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+            f.write(log)
+        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
         os.replace(tmp, out)
         compiled = True
+    with open(log_path) as f:
+        log = f.read()
     lib = ctypes.CDLL(out)
     return lib, BuildInfo(out, compiled, time.perf_counter() - t0, log)

@@ -16,53 +16,68 @@
 // for both off-diagonal entries, so gc's middle column is the gradient of
 // that one number.
 //
-// What bounds them on an H100: per pair one exp and 30-120 FMAs, no loads
-// from device memory (the staged tile sits in shared memory and every thread
-// of a block reads the same word, a broadcast).  Like K1 they are bound by
-// the exp and FMA instruction rate, not by bytes.
+// What bounds them on an H100: per pair one exp and 19-225 FLOP, nothing per
+// pair from device memory (the staged tile sits in shared memory and every
+// thread of a block reads the same word, a broadcast), so the exp and FMA
+// issue rate, not bytes.  At the training shapes (4096 samples over 1664
+// Gaussians) K2's bound is 2.8 us (order 0) and 7.9 us (order 2), next to a
+// launch floor of a few microseconds; what decides the time is whether the
+// pairs reach every SM and keep its schedulers issuing.
 //
-// K2 design: one thread per Gaussian keeps mu, C and v in registers and its
-// 5 + C gradient sums in registers.  A block of 128 Gaussians stages tiles
-// of 128 samples (positions and that tile's K*C cotangents) through shared
-// memory; a tile is summed plainly and added into the running totals with
-// Kahan compensation, as the TPU kernel does across sample tiles.  A
-// training call has only n = 1664 Gaussians, 13 blocks for 132 SMs, so the
-// sample axis is also split over blockIdx.y into `slices`: each block writes
-// its slice's sums to a (slices, n, 5 + C) buffer and a second small kernel
-// sums the slices in a fixed order (Kahan again).  No atomics: the result is
-// deterministic.  C = 1 takes the rank-1 route of the TPU kernel: r_k is the
-// cotangent itself, the value factor multiplies gm and gc once at the end,
-// and gv = sum_j A g.
+// K2 design: a 2-D grid of Gaussian tiles x sample slices.  A block of 128
+// threads takes 128 Gaussians, one a thread, each keeping its mu, C and v
+// and its 5 + C gradient sums in registers; the samples of the block's
+// slice (position and K*C cotangents) are staged through shared memory and
+// read as broadcasts.  The wrapper cuts the sample axis into `slices` runs
+// of `slice_len` (a multiple of 32, mixture_kernel.py::gauss_geometry) so
+// that the grid holds about 6 blocks (24 warps) per SM, at least 2, where
+// the first design's slices of 256 samples gave 208 blocks, 1-2 per SM.
+// chip_smoke.py phase 8 times that choice against 2-8 blocks per SM; two
+// Gaussians a thread, tried as well, were no faster than one.  At order 0
+// the adjoint skips the terms that are zero there (adjoint_order0): IEEE
+// arithmetic keeps 0 * x, so adjoint_fields pays for them.  Within a slice a
+// shared tile of up to 128 samples is summed plainly and added into the
+// running totals with Kahan compensation, as the TPU kernel does across
+// sample tiles.  With several slices each block writes its slice's sums to
+// scratch (slices, 5 + C, n) and a second pass adds the slices in a fixed
+// order with Kahan compensation (mixture_common.cuh); with one slice the
+// block writes the output directly.  No atomics and a
+// geometry fixed by (m, n, the SM count): the result is deterministic, bit
+// for bit.  C = 1 takes the rank-1 route of the TPU kernel: r_k is the
+// cotangent itself, the value factor multiplies gm and gc once at the end
+// of each slice, and gv = sum_j A g.
 //
-// K3 design: K1's layout.  One thread per sample holds its K*C cotangents in
-// registers; Gaussians are staged through shared memory in tiles of 128;
-// Kahan across tiles; gx(2) in registers.  C = 1 folds v into g.
+// K3 design: K1's first layout.  One thread per sample holds its K*C
+// cotangents in registers; Gaussians are staged through shared memory in
+// tiles of 128; Kahan across tiles; gx(2) in registers.  C = 1 folds v into
+// g.  K3 does not run on the main path (the samples need no gradient there)
+// and keeps that design.
 //
 // The TPU design's transposed (comp, n) tiles and the cotangent split done
 // outside the kernel exist for Mosaic and are not carried over.
 
 #include <cuda_runtime.h>
 
+#include "mixture_common.cuh"
+
 namespace {
+
+using mixture::Comps;
+using mixture::group_of;
+using mixture::group_offset;
+using mixture::kahan_add;
 
 constexpr int kThreads = 128;  // Gaussians (K2) or samples (K3) per block
 constexpr int kTile = 128;     // samples (K2) or Gaussians (K3) per tile
-
-template <int ORDER>
-struct Comps {
-  // Number of packed components up to ORDER: 1, 3, 6, 10.
-  static constexpr int value = (ORDER + 1) * (ORDER + 2) / 2;
-};
-
-// First packed component of each derivative group.
-__host__ __device__ constexpr int group_offset(int group) {
-  return group * (group + 1) / 2;
-}
 
 struct Pair {
   float dx, dy, px, py, g;
 };
 
+// kExp2: g = exp2(c q) with c = -log2(e) / 2 folded into the multiply the
+// quadratic form q needs anyway (K2); else expf (K3, unchanged since its
+// first design).
+template <bool kExp2 = false>
 __device__ __forceinline__ Pair pair_geometry(float x, float y, float mx,
                                               float my, float cxx, float cxy,
                                               float cyy, int periodic,
@@ -77,7 +92,10 @@ __device__ __forceinline__ Pair pair_geometry(float x, float y, float mx,
   }
   q.px = cxx * q.dx + cxy * q.dy;
   q.py = cxy * q.dx + cyy * q.dy;
-  q.g = expf(-0.5f * (q.dx * q.px + q.dy * q.py));
+  if constexpr (kExp2)
+    q.g = exp2f(-0.72134752044448170368f * (q.dx * q.px + q.dy * q.py));
+  else
+    q.g = expf(-0.5f * (q.dx * q.px + q.dy * q.py));
   return q;
 }
 
@@ -155,20 +173,12 @@ __device__ __forceinline__ Adjoint adjoint_fields(const Pair& q, float cxx,
   return e;
 }
 
-__device__ __forceinline__ void kahan_add(float& total, float& carry,
-                                          float inc) {
-  const float y = inc - carry;
-  const float t = total + y;
-  carry = (t - total) - y;
-  total = t;
-}
-
 // Read packed component `comp` (channel ch) of sample j from the group
 // buffers cot0..cot3, whose rows are (G * C) wide.
 template <int C>
 __device__ __forceinline__ float cot_at(const float* const* cots, int comp,
                                         int ch, int j) {
-  const int group = comp >= 6 ? 3 : (comp >= 3 ? 2 : (comp >= 1 ? 1 : 0));
+  const int group = group_of(comp);
   const int k = comp - group_offset(group);
   return cots[group][(size_t)j * (group + 1) * C + k * C + ch];
 }
@@ -179,6 +189,21 @@ struct Cots {
 
 // ------------------------------------------------------------------ K2 ----
 
+// The adjoint fields at order 0, where Q = R = D = 0: E_d = -A g p,
+// E_cxx = -A g dx^2 / 2, E_cxy = -A g dx dy, E_cyy = -A g dy^2 / 2.
+// K2 only; K3 keeps adjoint_fields' arithmetic.
+__device__ __forceinline__ Adjoint adjoint_order0(const Pair& q, float r0) {
+  Adjoint e;
+  e.ag = r0 * q.g;
+  const float half = -0.5f * e.ag;
+  e.edx = -e.ag * q.px;
+  e.edy = -e.ag * q.py;
+  e.ecxx = half * q.dx * q.dx;
+  e.ecxy = -e.ag * q.dx * q.dy;
+  e.ecyy = half * q.dy * q.dy;
+  return e;
+}
+
 template <int ORDER, int C>
 __global__ void __launch_bounds__(kThreads) bwd_gauss_partial_kernel(
     const float* __restrict__ samples,  // (m, 2)
@@ -187,13 +212,14 @@ __global__ void __launch_bounds__(kThreads) bwd_gauss_partial_kernel(
     const float* __restrict__ values,   // (n, C), mask folded in
     Cots cots, int m, int n, int slice_len, int periodic, float period,
     float inv_period,
-    float* __restrict__ partials) {     // (slices, n, 5 + C)
+    float* __restrict__ partials,       // (slices, 5 + C, n), or null
+    float* __restrict__ out) {          // (n, 5 + C) when partials is null
   constexpr int K = Comps<ORDER>::value;
   constexpr int W = 5 + C;
-
-  __shared__ float s_x[kTile];
-  __shared__ float s_y[kTile];
-  __shared__ float s_cot[K * C][kTile];
+  // Sample t of the tile as one record [x, y, cot_0 .. cot_{K*C-1}] of R
+  // float4s, read with R broadcast loads a pair.
+  constexpr int R = (2 + K * C + 3) / 4;
+  __shared__ float4 s_rec[kTile][R];
 
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < n;
@@ -220,13 +246,14 @@ __global__ void __launch_bounds__(kThreads) bwd_gauss_partial_kernel(
     __syncthreads();  // every thread is done with the previous tile
     for (int t = threadIdx.x; t < len; t += kThreads) {
       const int j = base + t;
-      s_x[t] = samples[2 * j];
-      s_y[t] = samples[2 * j + 1];
+      float* rec = reinterpret_cast<float*>(s_rec[t]);
+      rec[0] = samples[2 * j];
+      rec[1] = samples[2 * j + 1];
 #pragma unroll
       for (int comp = 0; comp < K; ++comp) {
 #pragma unroll
         for (int ch = 0; ch < C; ++ch)
-          s_cot[comp * C + ch][t] = cot_at<C>(cots.p, comp, ch, j);
+          rec[2 + comp * C + ch] = cot_at<C>(cots.p, comp, ch, j);
       }
     }
     __syncthreads();
@@ -237,24 +264,32 @@ __global__ void __launch_bounds__(kThreads) bwd_gauss_partial_kernel(
 
 #pragma unroll 2
     for (int t = 0; t < len; ++t) {
-      const Pair q = pair_geometry(s_x[t], s_y[t], mx, my, cxx, cxy, cyy,
-                                   periodic, period, inv_period);
+      float4 rec4[R];
+#pragma unroll
+      for (int b = 0; b < R; ++b) rec4[b] = s_rec[t][b];
+      const float* rec = reinterpret_cast<const float*>(rec4);
+      const float* cot = rec + 2;
+      const Pair q = pair_geometry<true>(rec[0], rec[1], mx, my, cxx, cxy,
+                                         cyy, periodic, period, inv_period);
       float r[K];
       if constexpr (C == 1) {
-        // Rank-1 route: r_k = cot_k (the value factor is applied at the end).
+        // Rank-1 route: r_k = cot_k (the value factor comes at the end).
 #pragma unroll
-        for (int k = 0; k < K; ++k) r[k] = s_cot[k][t];
+        for (int k = 0; k < K; ++k) r[k] = cot[k];
       } else {
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           float acc = 0.0f;
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch)
-            acc = fmaf(s_cot[k * C + ch][t], v[ch], acc);
+          for (int ch = 0; ch < C; ++ch) acc = fmaf(cot[k * C + ch], v[ch], acc);
           r[k] = acc;
         }
       }
-      const Adjoint e = adjoint_fields<ORDER>(q, cxx, cxy, cyy, r);
+      Adjoint e;
+      if constexpr (ORDER == 0)
+        e = adjoint_order0(q, r[0]);
+      else
+        e = adjoint_fields<ORDER>(q, cxx, cxy, cyy, r);
       part[0] -= e.edx;
       part[1] -= e.edy;
       part[2] += e.ecxx;
@@ -269,7 +304,7 @@ __global__ void __launch_bounds__(kThreads) bwd_gauss_partial_kernel(
         for (int ch = 0; ch < C; ++ch) {
           float acc = part[5 + ch];
 #pragma unroll
-          for (int k = 0; k < K; ++k) acc = fmaf(s_cot[k * C + ch][t], w[k], acc);
+          for (int k = 0; k < K; ++k) acc = fmaf(cot[k * C + ch], w[k], acc);
           part[5 + ch] = acc;
         }
       }
@@ -279,28 +314,27 @@ __global__ void __launch_bounds__(kThreads) bwd_gauss_partial_kernel(
   }
 
   if (!live) return;
-  float* out = partials + ((size_t)blockIdx.y * n + i) * W;
-  if constexpr (C == 1) {
 #pragma unroll
-    for (int k = 0; k < 5; ++k) out[k] = total[k] * v[0];
-    out[5] = total[5];
-  } else {
-#pragma unroll
-    for (int k = 0; k < W; ++k) out[k] = total[k];
+  for (int k = 0; k < W; ++k) {
+    // C = 1: the rank-1 route's value factor on gm and gc.
+    const float val = (C == 1 && k < 5) ? total[k] * v[0] : total[k];
+    if (partials != nullptr)
+      partials[((size_t)blockIdx.y * W + k) * n + i] = val;
+    else
+      out[(size_t)i * W + k] = val;
   }
 }
 
-// Sum the slices' partials in a fixed order: out[e] = sum_s partials[s, e].
-__global__ void __launch_bounds__(256) reduce_slices_kernel(
-    const float* __restrict__ partials, int slices, int count,
-    float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= count) return;
-  float total = 0.0f, carry = 0.0f;
-  for (int s = 0; s < slices; ++s)
-    kahan_add(total, carry, partials[(size_t)s * count + e]);
-  out[e] = total;
-}
+// The second pass's store: entry e = k * n + i of the scratch layout to
+// out (n, W).
+struct GaussStore {
+  float* out;
+  int n, W;
+  __device__ void operator()(int e, float sum) const {
+    const int k = e / n, i = e - k * n;
+    out[(size_t)i * W + k] = sum;
+  }
+};
 
 // ------------------------------------------------------------------ K3 ----
 
@@ -395,13 +429,12 @@ cudaError_t launch_gauss(const Args& a) {
   const dim3 grid((a.n + kThreads - 1) / kThreads, a.slices);
   bwd_gauss_partial_kernel<ORDER, C><<<grid, kThreads, 0, a.stream>>>(
       a.samples, a.means, a.conics, a.values, a.cots, a.m, a.n, a.slice_len,
-      a.periodic, a.period, a.inv_period, a.partials);
+      a.periodic, a.period, a.inv_period,
+      a.slices > 1 ? a.partials : nullptr, a.out);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int count = a.n * (5 + C);
-  reduce_slices_kernel<<<(count + 255) / 256, 256, 0, a.stream>>>(
-      a.partials, a.slices, count, a.out);
-  return cudaGetLastError();
+  if (err != cudaSuccess || a.slices == 1) return err;
+  return mixture::combine_slices(a.partials, a.slices, a.n * (5 + C),
+                                 GaussStore{a.out, a.n, 5 + C}, a.stream);
 }
 
 template <int ORDER, int C>
@@ -472,9 +505,9 @@ Args make_args(const void* samples, const void* means, const void* conics,
 // (m, 4C); those past `order` may be null.  `period` is read only when
 // `periodic` is non-zero.
 
-// K2: out (n, 5 + C) = [gm_x, gm_y, gc_xx, gc_xy, gc_yy, gv_0..gv_C-1];
-// partials is scratch of (slices, n, 5 + C) floats, the sample axis cut into
-// `slices` runs of `slice_len` samples.
+// K2: out (n, 5 + C) = [gm_x, gm_y, gc_xx, gc_xy, gc_yy, gv_0..gv_C-1]; the
+// sample axis is cut into `slices` runs of `slice_len` samples and, with
+// slices > 1, partials is scratch of (slices, 5 + C, n) floats.
 extern "C" int pigs_mixture_bwd_gauss(int order, int c, const void* samples,
                                       const void* means, const void* conics,
                                       const void* values, const void* cot0,
@@ -484,7 +517,8 @@ extern "C" int pigs_mixture_bwd_gauss(int order, int c, const void* samples,
                                       float period, void* partials, void* out,
                                       void* stream) {
   if (n == 0) return 0;
-  if (slices < 1 || (long long)slices * slice_len < m)
+  if (slices < 1 || slice_len < 1 || (long long)slices * slice_len < m ||
+      (slices > 1 && partials == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(samples, means, conics, values, cot0, cot1, cot2, cot3,
                      m, n, periodic, period, stream);

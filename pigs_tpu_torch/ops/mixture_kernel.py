@@ -23,8 +23,12 @@ which compute the same hand-derived adjoint.  Anything else raises.  The
 backward is first order only (``once_differentiable``): a second-order
 request raises.
 
-``launches``, ``bwd_gauss_launches`` and ``bwd_sample_launches`` count the
-kernels' launches and nothing else.
+K1 and K2 split the axis they sum over (the Gaussians for K1, the samples
+for K2) so that the grid fills the card at the main path's small shapes
+(:func:`fwd_geometry`, :func:`gauss_geometry`); a second pass adds the
+slices in a fixed order, so both stay deterministic.  ``launches``,
+``bwd_gauss_launches`` and ``bwd_sample_launches`` count the kernels'
+launches (one per wrapper call, the second pass included) and nothing else.
 """
 
 from __future__ import annotations
@@ -42,12 +46,16 @@ __all__ = ["mixture_forward", "mixture_forward_plain",
            "mixture_backward_gauss", "mixture_backward_gauss_plain",
            "mixture_backward_sample", "mixture_backward_sample_plain",
            "eval_mixture_fused", "pack_conics", "unpack_fields", "build",
-           "launches", "bwd_gauss_launches", "bwd_sample_launches"]
+           "fwd_geometry", "gauss_geometry", "launches",
+           "bwd_gauss_launches", "bwd_sample_launches"]
 
 GROUP_SIZES = (1, 2, 3, 4)   # packed components per derivative order
 FWD_SOURCES = ("mixture_fwd.cu",)
 BWD_SOURCES = ("mixture_bwd.cu",)
-BWD_THREADS = 128            # Gaussians per K2 block, samples per K2 tile
+THREADS = 128                # samples per K1 block, Gaussians per K2 block
+FWD_SLICE_UNIT = 8           # K1's Gaussian slices: whole numbers of these
+BWD_SLICE_UNIT = 32          # K2's sample slices: whole numbers of these
+BLOCKS_PER_SM = 6            # the grid the slicing aims for (at least 2)
 
 # Number of times each CUDA kernel was launched in this process.
 launches = 0             # K1
@@ -75,8 +83,8 @@ def _fwd_library():
     from pigs_tpu_torch.ops._build import load_library
     lib, info = load_library("mixture_fwd", FWD_SOURCES)
     fn = lib.pigs_mixture_fwd
-    fn.argtypes = [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                   ctypes.c_float, _PTR, _PTR, _PTR, _PTR, _PTR]
+    fn.argtypes = [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                   _INT, ctypes.c_float, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
     fn.restype = _INT
     return lib, info
 
@@ -269,35 +277,64 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(means, conics_packed, values, samples, order, period):
-    global launches
-    fn = _fwd_library()[0].pigs_mixture_fwd
-    m, c = samples.shape[0], values.shape[1]
-    outs = [torch.empty((m, gsize * c), dtype=torch.float32,
-                        device=samples.device)
-            for gsize in GROUP_SIZES[:order + 1]]
-    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-    err = fn(order, c, samples.data_ptr(), means.data_ptr(),
-             conics_packed.data_ptr(), values.data_ptr(), m, means.shape[0],
-             *_period_args(period), *ptrs, _stream(samples.device))
-    if err != 0:
-        raise RuntimeError(f"mixture_fwd launch failed: cudaError {err}")
-    launches += 1
-    return outs
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gauss_slices(m: int, n: int, sms: int) -> Tuple[int, int]:
-    """K2's split of the sample axis: ``(slices, slice_len)`` so that the
-    grid has about two blocks per SM, each slice a whole number of tiles."""
-    blocks_n = max(-(-n // BWD_THREADS), 1)
-    target = max(-(-2 * sms // blocks_n), 1)
-    slice_len = -(-max(-(-m // target), 1) // BWD_THREADS) * BWD_THREADS
-    return max(-(-m // slice_len), 1), slice_len
+def _split(length: int, unit: int, tiles: int, sms: int,
+           blocks_per_sm: int) -> Tuple[int, int]:
+    """``(slices, slice_len)`` cutting an axis of ``length`` so that
+    ``tiles`` blocks per slice make a grid of at least ``blocks_per_sm``
+    blocks per SM where the axis allows: every slice but the last a whole
+    number of ``unit``; one slice when the tiles alone fill the card."""
+    want = -(-blocks_per_sm * sms // max(tiles, 1))
+    if want <= 1:
+        return 1, max(length, 1)
+    slice_len = max(unit, length // want // unit * unit)
+    return max(-(-length // slice_len), 1), slice_len
+
+
+def fwd_geometry(m: int, n: int, sms: int,
+                 blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int, int]:
+    """K1's grid for m samples over n Gaussians: ``(sample tiles, Gaussian
+    slices, slice_len)``; a tile is ``THREADS`` samples."""
+    tiles = max(-(-m // THREADS), 1)
+    return (tiles, *_split(n, FWD_SLICE_UNIT, tiles, sms, blocks_per_sm))
+
+
+def gauss_geometry(m: int, n: int, sms: int,
+                   blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int, int]:
+    """K2's grid for m samples over n Gaussians: ``(Gaussian tiles, sample
+    slices, slice_len)``; a tile is ``THREADS`` Gaussians."""
+    tiles = max(-(-n // THREADS), 1)
+    return (tiles, *_split(m, BWD_SLICE_UNIT, tiles, sms, blocks_per_sm))
+
+
+def _launch_fwd(means, conics_packed, values, samples, order, period,
+                blocks_per_sm=BLOCKS_PER_SM):
+    global launches
+    fn = _fwd_library()[0].pigs_mixture_fwd
+    m, n, c = samples.shape[0], means.shape[0], values.shape[1]
+    dev = samples.device
+    _, slices, slice_len = fwd_geometry(m, n, _sm_count(dev.index or 0),
+                                        blocks_per_sm)
+    outs = [torch.empty((m, gsize * c), dtype=torch.float32, device=dev)
+            for gsize in GROUP_SIZES[:order + 1]]
+    partials = None
+    if slices > 1:
+        comps = sum(GROUP_SIZES[:order + 1]) * c
+        partials = torch.empty((slices, comps, m), dtype=torch.float32,
+                               device=dev)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    err = fn(order, c, samples.data_ptr(), means.data_ptr(),
+             conics_packed.data_ptr(), values.data_ptr(), m, n, slices,
+             slice_len, *_period_args(period), *ptrs, _ptr(partials),
+             _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mixture_fwd launch failed: cudaError {err}")
+    launches += 1
+    return outs
 
 
 def _cot_args(cots, order):
@@ -306,19 +343,22 @@ def _cot_args(cots, order):
 
 
 def _launch_bwd_gauss(means, conics_packed, values, samples, cots, order,
-                      period):
+                      period, blocks_per_sm=BLOCKS_PER_SM):
     global bwd_gauss_launches
     fn = _bwd_library()[0].pigs_mixture_bwd_gauss
     m, n, c = samples.shape[0], means.shape[0], values.shape[1]
     dev = samples.device
-    slices, slice_len = gauss_slices(m, n, _sm_count(dev.index or 0))
-    partials = torch.empty((slices, n, 5 + c), dtype=torch.float32,
-                           device=dev)
+    _, slices, slice_len = gauss_geometry(m, n, _sm_count(dev.index or 0),
+                                          blocks_per_sm)
+    partials = None
+    if slices > 1:
+        partials = torch.empty((slices, 5 + c, n), dtype=torch.float32,
+                               device=dev)
     out = torch.empty((n, 5 + c), dtype=torch.float32, device=dev)
     err = fn(order, c, samples.data_ptr(), means.data_ptr(),
              conics_packed.data_ptr(), values.data_ptr(),
              *_cot_args(cots, order), m, n, slices, slice_len,
-             *_period_args(period), partials.data_ptr(), out.data_ptr(),
+             *_period_args(period), _ptr(partials), out.data_ptr(),
              _stream(dev))
     if err != 0:
         raise RuntimeError(f"mixture_bwd_gauss launch failed: cudaError {err}")

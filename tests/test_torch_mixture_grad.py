@@ -194,7 +194,8 @@ def test_second_order_raises():
 
 def test_gauss_slices_cover_the_samples():
     for m, n in [(4096, 1664), (1000, 333), (1, 1), (130, 5000)]:
-        slices, slice_len = mk.gauss_slices(m, n, 132)
-        assert slice_len % 128 == 0 and slices * slice_len >= m
-        assert (slices - 1) * slice_len < m
-    assert mk.gauss_slices(4096, 1664, 132) == (16, 256)
+        _, slices, slice_len = mk.gauss_geometry(m, n, 132)
+        assert slices * slice_len >= m and (slices - 1) * slice_len < m
+        assert slices == 1 or slice_len % mk.BWD_SLICE_UNIT == 0
+    # 13 tiles of 128 Gaussians x 64 slices of 64 samples: 832 blocks.
+    assert mk.gauss_geometry(4096, 1664, 132) == (13, 64, 64)
