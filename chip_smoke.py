@@ -88,12 +88,35 @@ Phases, in order; any failure exits non-zero:
                and at benchmarks/perf_suite.py's synthetic inputs, n in
                {512, 1664, 4096, 8192}; K4 and K5 at the real inputs timed
                as in 8, the bound counting the neighbour pairs of each
-               input.
+               input;
+ 11. ns-train  Navier-Stokes training from artifacts/ns_vorttrain_train_
+               torch.npz (the NS checkpoint's training state, one epoch's
+               inputs with the reconstruction targets, and the JAX float64
+               step and epoch): (a) one pn_step with the reconstruction
+               loss in float32 through K1/K2 against the JAX float64 step,
+               at phase 5's tolerances (the reconstruction term its own
+               entry), the plain path's errors beside them; (b) the 20-step
+               split-regime epoch (vorticity criteria) under phase 6's
+               rules, with exact launch counts (2 + 8 K1 and 1 K2 a step);
+               (c) train(ns_data=...) resumed for 3 epochs of the recipe, a
+               checkpoint round trip, and the EMA parameters rolled out on
+               the held-out trajectory within 0.005 of the JAX-CPU rollout
+               of the checkpoint; (d) K1 at the NS training shapes phase 9
+               does not time (2048x640 orders 3 and 0, 640x640 order 1 and
+               order 0 c=1, periodic) and K2 at 2048x640 order 3 c=2,
+               checked against their twins and the f64 oracle and timed as
+               in 8; (e) the NS pn_step's time and a profile of 5 of them;
+               (f) one flagship epoch with noise_std 0.01 and
+               adaptive_sampling 0.5: exact launch counts, exactly one
+               order-1 K1 launch at the 4 x 4096 importance candidates
+               (checked against its twin and the f64 oracle, equal to a
+               second launch, and timed), finite losses, and every boundary
+               Gaussian's value unchanged by the noise.
 
 The line before the card's is the kernels line: per kernel its launches
-(per path, per training step, per rollout step), errors, device, graph,
-call and plain times and bounds by shape, and library_ms (null: no single
-PyTorch call computes any of these functions).
+(per path, per training step, per NS training step, per rollout step),
+errors, device, graph, call and plain times and bounds by shape, and
+library_ms (null: no single PyTorch call computes any of these functions).
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the last line is a JSON object with ``ok`` and the device.  Without a CUDA
@@ -114,6 +137,8 @@ TRAIN_FIXTURE = os.path.join(ROOT, "artifacts",
                              "burgers_ns4096_ema2_train_torch.npz")
 NS_FIXTURE = os.path.join(ROOT, "artifacts", "ns_vorttrain_torch.npz")
 NS_DATA = os.path.join(ROOT, "artifacts", "ns_data_8traj.npz")
+NS_TRAIN_FIXTURE = os.path.join(ROOT, "artifacts",
+                                "ns_vorttrain_train_torch.npz")
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 PERF_SUITE_SIZES = (512, 1664, 4096, 8192)  # benchmarks/perf_suite.py
 
@@ -632,26 +657,27 @@ def grid_of(mk, geometry) -> dict:
             "tiles": tiles, "slices": slices, "slice_len": slice_len}
 
 
-def time_k23(label, packed, smp, order, mk, gen, card) -> dict:
-    """K2 and K3 at one training input (c=1, no period): K2 bitwise
-    deterministic over two raw launches, then both kernels' times and
-    bounds, and K2's time against the grid's target."""
+def time_k23(label, packed, smp, order, mk, gen, card, period=None,
+             with_k3=True) -> dict:
+    """K2 (and K3 unless ``with_k3`` is False) at one training input: K2
+    bitwise deterministic over two raw launches, then the kernels' times
+    and bounds, and K2's time against the grid's target."""
     import torch
-    m, n = smp.shape[0], packed[0].shape[0]
-    cots = [torch.randn((m, gs), generator=gen).to(smp.device)
+    m, n, c = smp.shape[0], packed[0].shape[0], packed[2].shape[1]
+    cots = [torch.randn((m, gs * c), generator=gen).to(smp.device)
             for gs in (1, 2, 3, 4)[:order + 1]]
-    a = (*packed, smp.contiguous(), cots, order, None)
+    a = (*packed, smp.contiguous(), cots, order, period)
     check_deterministic(f"K2 {label}", lambda: mk._launch_bwd_gauss(*a))
     out = {}
-    for name, launch, call, plain in (
-            ("mixture_bwd_gauss", mk._launch_bwd_gauss,
-             mk.mixture_backward_gauss, mk.mixture_backward_gauss_plain),
-            ("mixture_bwd_sample", mk._launch_bwd_sample,
-             mk.mixture_backward_sample, mk.mixture_backward_sample_plain)):
+    kernels = (("mixture_bwd_gauss", mk._launch_bwd_gauss,
+                mk.mixture_backward_gauss, mk.mixture_backward_gauss_plain),
+               ("mixture_bwd_sample", mk._launch_bwd_sample,
+                mk.mixture_backward_sample, mk.mixture_backward_sample_plain))
+    for name, launch, call, plain in kernels[:2 if with_k3 else 1]:
         t = time_kernel(lambda: launch(*a), lambda: call(*a),
                         lambda: plain(*a))
-        t["bound_ms"], t["bound_by"] = mixture_bound(name, m, n, order, 1,
-                                                     False)
+        t["bound_ms"], t["bound_by"] = mixture_bound(name, m, n, order, c,
+                                                     period is not None)
         if name == "mixture_bwd_gauss":
             t["grid"] = grid_of(mk, mk.gauss_geometry(m, n, mk._sm_count(0)))
         print(describe_kernel_times(name, label, t, card), flush=True)
@@ -682,14 +708,14 @@ class TrainInputs:
     """The training fixture on the card: config, network and Adam state as
     the checkpoint has them, the epoch's inputs, and the JAX references."""
 
-    def __init__(self, device):
+    def __init__(self, device, path=TRAIN_FIXTURE):
         import torch
 
         from pigs_tpu_torch.convert import load_train_fixture
         from pigs_tpu_torch.models.state import MixtureState
         self.device = device
         (self.cfg, self.network, self.opt, self.ema,
-         self.data) = load_train_fixture(TRAIN_FIXTURE, device=device)
+         self.data) = load_train_fixture(path, device=device)
         self.names = [k for k, _ in self.network.named_parameters()]
         self.params0 = [p.detach().clone() for p in self.network.parameters()]
         self.opt0 = self.opt
@@ -709,6 +735,26 @@ class TrainInputs:
         self.floor = float(d["train_loss_weight_floor"])
         self.clip = float(d["train_clip_norm"])
         self.n_steps = int(d["train_n_steps"])
+        # NS: step i's reconstruction target (the flagship has none).
+        self.recon = (t("input_recon_targets")
+                      if "input_recon_targets" in d else None)
+
+    def recon_target(self, i):
+        return None if self.recon is None else self.recon[i]
+
+    def train_config(self, **kw):
+        """The fixture's recipe, resumed for three epochs."""
+        from pigs_tpu_torch.train.pn import TrainConfig
+        d = self.data
+        return TrainConfig(
+            n_epochs=int(d["train_n_epochs"]),
+            n_samples=int(d["train_n_samples"]), lr=float(d["train_lr"]),
+            lr_min=float(d["train_lr_min"]), dt=self.dt,
+            train_timesteps=int(d["train_timesteps"]),
+            loss_weight_floor=self.floor,
+            split_epoch=int(d["train_split_epoch"]),
+            ema_decay=float(d["train_ema_decay"]), clip_norm=self.clip,
+            skip_nonfinite_updates=True, **kw)
 
     def reset(self):
         """Parameters and Adam state back to the checkpoint's."""
@@ -744,21 +790,28 @@ class TrainInputs:
 
 
 def train_step_phase(ti, impl):
-    """One pn_step on ``impl``'s mixture path: errors against JAX f64."""
+    """One pn_step on ``impl``'s mixture path: errors against JAX f64 (loss
+    terms [pde, bc, cons, init, mag, (NS: recon,) total], the gradient, the
+    update and the loss weight)."""
     import torch
 
     from pigs_tpu_torch.train.pn import pn_loss_grads, pn_step
     cfg = ti.cfg._replace(mixture_impl=impl)
     ti.reset()
     prev = ti.prev_fields(cfg)
-    _, _, losses, total, grads = pn_loss_grads(
+    recon = ti.recon_target(0)
+    _, curr, losses, total, grads = pn_loss_grads(
         cfg, ti.network, ti.state, prev, ti.samples, ti.time_samples,
-        ti.bc_samples, 0.0, ti.dt)
-    got = torch.tensor([float(x) for x in losses] + [float(total)],
-                       dtype=torch.float64)
-    want = torch.from_numpy(ti.data["step_losses"])
+        ti.bc_samples, 0.0, ti.dt, recon_target=recon)
+    got = [float(x) for x in losses]
+    want = list(ti.data["step_losses"][:5])
+    if recon is not None:
+        got.append(float(5.0 * torch.mean((curr.w - recon) ** 2)))
+        want.append(float(ti.data["step_recon"]))
+    got.append(float(total))
+    want.append(float(ti.data["step_losses"][5]))
     loss_errs = [abs(a - b) / abs(b) if b else abs(a - b)
-                 for a, b in zip(got.tolist(), want.tolist())]
+                 for a, b in zip(got, want)]
     grad = torch.cat([g.flatten().double().cpu() for g in grads])
     grad_err = rel_err(grad, ti.jax_tree("step_grads"))
     before = ti.flat_params()
@@ -766,12 +819,113 @@ def train_step_phase(ti, impl):
         cfg, ti.network, ti.opt, ti.state, prev, ti.samples, ti.time_samples,
         ti.bc_samples, torch.ones((), device=ti.device), ti.base_lr,
         ti.epsilon, 0.0, ti.dt, loss_weight_floor=ti.floor, clip_norm=ti.clip,
-        skip_nonfinite=True)
+        skip_nonfinite=True, recon_target=recon)
     update = ti.flat_params() - before
     update_err = rel_err(update, ti.jax_tree("step_params") - before)
     lw_err = abs(float(lw) - float(ti.data["step_loss_weight"]))
     check(int(opt.count) == int(ti.opt0.count) + 1, "Adam count not advanced")
     return loss_errs, grad_err, update_err, lw_err
+
+
+def split_epoch_phase(ti, mk, ak, want_counts, tag):
+    """The fixture's split-regime epoch through the kernels: exact K1, K2
+    and K3 launch counts, finite losses, per-step totals within
+    EPOCH_TOTAL_TOL of JAX's up to the first step whose active mask differs
+    from JAX's (reported, not failed: split decisions threshold on float32
+    values).  Returns the launch counts (K1-K5) and that step (or None)."""
+    import numpy as np
+    import torch
+
+    from pigs_tpu_torch.train.pn import pn_epoch
+    ti.reset()
+    reset_counts(mk, ak)
+    prev = ti.prev_fields(ti.cfg)
+    epoch = pn_epoch(ti.cfg, ti.network, ti.opt, ti.state, prev, ti.samples,
+                     ti.time_samples, ti.bc_samples, ti.base_lr, ti.epsilon,
+                     ti.dt, ti.n_steps, loss_weight_floor=ti.floor,
+                     do_split=True, clip_norm=ti.clip, skip_nonfinite=True,
+                     recon_targets=None if ti.recon is None else
+                     ti.recon[:ti.n_steps])
+    torch.cuda.synchronize()
+    counts = read_counts(mk, ak)
+    print(f"[{tag}] launches (K1, K2, K3, K4, K5) {counts}, expected "
+          f"{want_counts}", flush=True)
+    check(counts[:3] == want_counts,
+          f"{tag} launches {counts} != {want_counts}")
+    per_step = epoch.per_step.cpu().numpy()
+    check(bool(np.isfinite(per_step).all()), f"{tag} losses not finite")
+    jax_steps = ti.data["epoch_per_step"]
+    diverged = [i for i in range(ti.n_steps)
+                if not np.array_equal(epoch.active[i].cpu().numpy(),
+                                      ti.data["epoch_active"][i])]
+    first = diverged[0] if diverged else None
+    upto = ti.n_steps if first is None else first + 1
+    total_errs = np.abs(per_step[:, 5] - jax_steps[:, 5]) / np.abs(
+        jax_steps[:, 5])
+    print(f"[{tag}] per-step total rel err vs JAX f64: "
+          + " ".join(f"{e:.2e}" for e in total_errs), flush=True)
+    print(f"[{tag}] active counts: "
+          + " ".join(str(int(a.sum())) for a in epoch.active.cpu()), flush=True)
+    print(f"[{tag}] first step whose active mask differs from JAX's: "
+          f"{'none' if first is None else first}", flush=True)
+    check(float(total_errs[:upto].max()) <= EPOCH_TOTAL_TOL,
+          f"{tag} totals vs JAX {float(total_errs[:upto].max()):.3e} > "
+          f"{EPOCH_TOTAL_TOL} before the split decisions diverge")
+    return counts, first
+
+
+def resumed_train(ti, log, dev, ns_data=None):
+    """train() resumed from the fixture's checkpoint for its three epochs,
+    logging every epoch into ``log`` (printed); fails unless it resumed and
+    logged three finite losses."""
+    import numpy as np
+
+    from pigs_tpu_torch.train.checkpoint import save_checkpoint
+    from pigs_tpu_torch.train.pn import train
+    ckpt_dir = os.path.join(SCRATCH, "resume")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ti.reset()
+    save_checkpoint(ckpt_dir, int(ti.data["train_epoch"]),
+                    dict(ti.network.named_parameters()), ti.opt, [],
+                    ema=dict(zip(ti.names, ti.ema)))
+    result = train(ti.cfg, ti.train_config(log_step=1),
+                   checkpoint_dir=ckpt_dir, resume=True, log_fn=log.append,
+                   device=dev, ns_data=ns_data)
+    for line in log:
+        print(f"  train: {line}", flush=True)
+    check(any("Resumed" in line for line in log), "train() did not resume")
+    check(len(result.training_loss) == 3 and all(
+        np.isfinite(result.training_loss)), "train() losses")
+    return result
+
+
+def check_round_trip(ti, result, dev):
+    """Save ``result`` as a checkpoint and restore it: every array equal.
+    Returns the restored checkpoint."""
+    import torch
+
+    from pigs_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    ckpt_dir = os.path.join(SCRATCH, "resume")
+    n_epochs = int(ti.data["train_n_epochs"])
+    names = ti.names
+    save_checkpoint(ckpt_dir, n_epochs,
+                    dict(result.network.named_parameters()), result.opt_state,
+                    result.training_loss, ema=dict(zip(names, result.ema)))
+    back = restore_checkpoint(ckpt_dir, dev)
+    same = (back.epoch == n_epochs
+            and back.training_loss == [float(x) for x in result.training_loss]
+            and all(torch.equal(back.params[k], p)
+                    for k, p in result.network.named_parameters())
+            and all(torch.equal(a, b) for a, b in
+                    zip(back.opt.mu + back.opt.nu + [back.opt.count],
+                        result.opt_state.mu + result.opt_state.nu
+                        + [result.opt_state.count]))
+            and all(torch.equal(back.ema[k], e)
+                    for k, e in zip(names, result.ema)))
+    check(same, "checkpoint round trip changed values")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return back
 
 
 def profile_ms(fn, steps: int, label: str, card: str):
@@ -894,6 +1048,214 @@ def ns_phase(dev, mk, ak, card) -> dict:
             "state25": state25, "counts": counts, "ms": ms,
             "mean_rel_l2": metrics["mean_rel_norm"], "k1_times": k1_times,
             "profile": profile, "steps": steps}
+
+
+def unpack_conics(packed):
+    """Packed conics ``(n, 3)`` -> full ``(n, 2, 2)``."""
+    import torch
+    cxx, cxy, cyy = packed.unbind(-1)
+    return torch.stack([torch.stack([cxx, cxy], -1),
+                        torch.stack([cxy, cyy], -1)], -2)
+
+
+def ns_train_phase(dev, mk, ak, card, fi) -> dict:
+    """Phase 11: Navier-Stokes training from the NS training fixture, and
+    one flagship epoch (``fi``: the flagship's TrainInputs) with the noise
+    and importance sampling."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pigs_tpu_torch.models.model import make_network
+    from pigs_tpu_torch.models.state import covariance_of
+    from pigs_tpu_torch.train import pn as tpn
+    ti = TrainInputs(dev, NS_TRAIN_FIXTURE)
+    out = {"counts": {}, "k1_times": {}, "k2_times": {}, "errs": [],
+           "berrs": []}
+
+    # (a) one NS step against JAX f64
+    step_errs = {}
+    for impl in ("auto", "plain"):
+        loss_errs, grad_err, update_err, lw_err = train_step_phase(ti, impl)
+        step_errs[impl] = (loss_errs, grad_err, update_err)
+        print(f"[ns-train] step {'K1/K2' if impl == 'auto' else 'plain'}: "
+              "loss terms [pde, bc, cons, init, mag, recon, total] rel err "
+              "vs JAX f64 " + " ".join(f"{e:.2e}" for e in loss_errs)
+              + f"; gradient {grad_err:.3e}; update {update_err:.3e}; "
+              f"loss weight abs {lw_err:.2e}", flush=True)
+    loss_errs, grad_err, update_err = step_errs["auto"]
+    check(max(loss_errs) <= STEP_LOSS_TOL,
+          f"NS pn_step loss terms {max(loss_errs):.3e} > {STEP_LOSS_TOL}")
+    check(grad_err <= STEP_GRAD_TOL,
+          f"NS pn_step gradient {grad_err:.3e} > {STEP_GRAD_TOL}")
+    check(update_err <= STEP_UPDATE_TOL,
+          f"NS pn_step update {update_err:.3e} > {STEP_UPDATE_TOL}")
+    out["step_errs"] = step_errs
+
+    # (b) the fixture's split-regime epoch (vorticity criteria), counted.
+    # Launches: the IC's fields, 2 K1 (order 3 at the collocation samples,
+    # order 0 at the boundary samples).  Each step: forward_step 1 K1 (order
+    # 3 at the means); sample_fields 2 K1, of which only the order-3 output
+    # reaches the loss (NS has no boundary term), so 1 K2; adaptive_split 3
+    # K1 (density order 0 c=1, vorticity now and before order 1);
+    # sample_fields of the split state 2 K1.
+    n_steps = ti.n_steps
+    out["counts"]["ns_epoch"], out["first"] = split_epoch_phase(
+        ti, mk, ak, (2 + 8 * n_steps, n_steps, 0), "ns-train epoch")
+    out["n_steps"] = n_steps
+
+    # (c) train(ns_data=...) resumed for 3 epochs, the round trip, and the
+    # EMA parameters rolled out on the held-out trajectory.
+    data = tpn.NSDataset.load(NS_DATA, device=dev)
+    held = int(ti.data["config_held_out"])
+    check(held == data.means.shape[0] - 1, f"held-out trajectory {held}")
+    log = []
+    reset_counts(mk, ak)
+    t_train = time.perf_counter()
+    result = resumed_train(ti, log, dev, ns_data=tpn.NSDataset(
+        *(x[:held] for x in data)))
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t_train
+    out["counts"]["ns_train"] = read_counts(mk, ak)
+    check(out["counts"]["ns_train"][0] > 0
+          and out["counts"]["ns_train"][1] > 0
+          and out["counts"]["ns_train"][2] == 0,
+          f"NS train() launches (K1-K5) {out['counts']['ns_train']}")
+    back = check_round_trip(ti, result, dev)
+    net = make_network(ti.cfg, frequencies=ti.network.frequencies.cpu(),
+                       device=dev)
+    net.load_state_dict(back.ema)
+    with np.load(NS_FIXTURE) as z:
+        jax_mean = float(z["jax_mean_rel_l2"])
+        steps, res = int(z["config_steps"]), int(z["config_res"])
+    frames = tpn.rollout_vorticity(ti.cfg, net, data.state_for(ti.cfg, held),
+                                   steps, res).cpu().numpy()
+    check(bool(np.isfinite(frames).all()), "NS EMA frames not finite")
+    gt = data.frames[held].permute(2, 0, 1).cpu().numpy()
+    out["ema_mean_rel_l2"] = tpn.rollout_metrics(frames, gt)["mean_rel_norm"]
+    print(f"[ns-train] 3 epochs in {out['train_s']:.2f} s; launches (K1-K5) "
+          f"{out['counts']['ns_train']}; checkpoint round trip equal; EMA "
+          f"rollout mean rel-L2 vs the solver {out['ema_mean_rel_l2']:.6f} "
+          f"(JAX-CPU rollout of the checkpoint {jax_mean:.6f})", flush=True)
+    check(abs(out["ema_mean_rel_l2"] - jax_mean) <= MEAN_REL_L2_TOL,
+          f"NS EMA rollout mean rel-L2 {out['ema_mean_rel_l2']:.6f} vs "
+          f"{jax_mean:.6f}")
+
+    # (d) K1 and K2 at the NS training shapes the other phases do not time
+    # (640x640 order 3 at the means is phase 9's): checked against the f32
+    # twin and the f64 oracle, then timed as in phase 8.
+    st, period = ti.state, ti.cfg.period
+    _, conics = covariance_of(st)
+    n, m = st.means.shape[0], ti.samples.shape[0]
+    ones = torch.ones((n, 1), device=dev)
+    k1_shapes = {
+        f"NS {m}x{n} order 3 c=2 periodic (collocation)":
+            (st.means, conics, st.u, ti.samples, 3, st.interior),
+        f"NS {m}x{n} order 0 c=2 periodic (boundary)":
+            (st.means, conics, st.u, ti.bc_samples, 0, st.interior),
+        f"NS {n}x{n} order 1 c=2 periodic (split: vorticity)":
+            (st.means, conics, st.u, st.means, 1, st.active),
+        f"NS {n}x{n} order 0 c=1 periodic (split: density)":
+            (st.means, conics, ones, st.means, 0, st.active),
+    }
+    gen = torch.Generator().manual_seed(11)
+    with torch.inference_mode():
+        for label, (mu, con, val, smp, order, mask) in k1_shapes.items():
+            out["errs"].append(compare_case(label, mu, con, val, smp, order,
+                                            mask, period, mk))
+            out["k1_times"][label] = time_k1(label, mu, con, val, smp, order,
+                                             mask, period, mk, card)
+    label = f"NS {m}x{n} order 3 c=2 periodic (collocation)"
+    out["berrs"].append(compare_backward(label, st.means, conics, st.u,
+                                         ti.samples, 3, st.interior, period,
+                                         mk, gen))
+    with torch.inference_mode():
+        packed = (st.means.contiguous(), mk.pack_conics(conics).contiguous(),
+                  (st.u * st.interior.float()[:, None]).contiguous())
+        out["k2_times"][label] = time_k23(label, packed, ti.samples, 3, mk,
+                                          gen, card, period=period,
+                                          with_k3=False)["mixture_bwd_gauss"]
+
+    # (e) 5 NS training steps: time and profile
+    ti.reset()
+    prev = ti.prev_fields(ti.cfg)
+
+    def step():
+        return tpn.pn_step(ti.cfg, ti.network, ti.opt, ti.state, prev,
+                           ti.samples, ti.time_samples, ti.bc_samples,
+                           torch.ones((), device=dev), ti.base_lr, ti.epsilon,
+                           0.0, ti.dt, ti.floor, ti.clip, True,
+                           recon_target=ti.recon_target(0))
+    step()
+    out["step_ms"] = statistics.median(host_ms(step) for _ in range(5))
+    print(f"[times] NS pn_step: K1/K2 {out['step_ms']:.2f} ms (median of 5, "
+          f"host clock with device syncs; {card})", flush=True)
+    out["profile"] = profile_ms(lambda: [step() for _ in range(5)], 5,
+                                "NS pn_steps", card)
+    ti.reset()
+
+    # (f) one flagship epoch with noise_std and adaptive_sampling, its K1
+    # launches recorded by shape.  The importance draw adds one order-1 K1
+    # at the 4 x n_samples candidates; the noise re-samples the carried
+    # fields at the start of each step (2 K1).
+    fi.reset()
+    tcfg = fi.train_config(noise_std=0.01, adaptive_sampling=0.5)
+    launched, seen = [], {}
+    launch_fwd, pn_epoch = mk._launch_fwd, tpn.pn_epoch
+    cand_key = (4 * tcfg.n_samples, fi.cfg.capacity, 1)
+
+    def spy_launch(*args, **kw):
+        outs = launch_fwd(*args, **kw)
+        key = (args[3].shape[0], args[0].shape[0], args[4])
+        launched.append(key)
+        if key == cand_key:
+            seen["cand"] = (args, [o.clone() for o in outs])
+        return outs
+
+    def spy_epoch(*args, **kw):
+        res = pn_epoch(*args, **kw)
+        seen["state"] = (args[3], res.state)
+        return res
+
+    reset_counts(mk, ak)
+    with mock.patch.object(mk, "_launch_fwd", spy_launch), \
+            mock.patch.object(tpn, "pn_epoch", spy_epoch):
+        _, totals, _, n_opt = tpn.train_epoch(
+            fi.cfg, tcfg, fi.network, fi.opt,
+            torch.Generator().manual_seed(tcfg.seed),
+            int(fi.data["train_epoch"]), tcfg.initial_timesteps, dev)
+    torch.cuda.synchronize()
+    counts = out["counts"]["options_epoch"] = read_counts(mk, ak)
+    want = (3 + 10 * n_opt, 2 * n_opt, 0)
+    n_cand = launched.count(cand_key)
+    print(f"[ns-train] flagship epoch with noise_std 0.01 and "
+          f"adaptive_sampling 0.5: {n_opt} steps, launches (K1-K5) {counts}, "
+          f"expected {want}; K1 launches at {cand_key[0]}x{cand_key[1]} "
+          f"order 1: {n_cand}; totals {totals}", flush=True)
+    check(counts[:3] == want, f"options epoch launches {counts} != {want}")
+    check(n_cand == 1, f"{n_cand} importance K1 launches, expected 1")
+    check(bool(np.isfinite(totals).all()), "options epoch losses not finite")
+    before, after = seen["state"]
+    check(torch.equal(before.u[before.boundary], after.u[after.boundary]),
+          "the noise moved a boundary Gaussian's value")
+    args, outs = seen["cand"]
+    label = (f"{cand_key[0]}x{cand_key[1]} order 1 (importance candidates "
+             "of the flagship)")
+    mu, packed, val, smp = args[:4]
+    con = unpack_conics(packed)
+    with torch.inference_mode():
+        check(all(torch.equal(a, b) for a, b in zip(
+            outs, mk._launch_fwd(*args[:6]))),
+            f"{label}: the path's launch and a second one differ")
+        out["errs"].append(compare_case(label, mu, con, val, smp, 1, None,
+                                        None, mk))
+        out["k1_times"][label] = time_k1(
+            label, mu, con, val, smp, 1,
+            torch.ones(mu.shape[0], dtype=torch.bool, device=dev), None, mk,
+            card)
+    fi.reset()
+    return out
 
 
 def aggregation_inputs(cfg, network, state):
@@ -1112,7 +1474,8 @@ def run() -> tuple:
     if not os.path.isdir(os.path.join(ROOT, "pigs_tpu_torch")):
         raise SmokeFailure(f"pigs_tpu_torch/ not found beside {__file__}: run "
                            "from a checkout of the repo")
-    for path in (FIXTURE, TRAIN_FIXTURE, NS_FIXTURE, NS_DATA):
+    for path in (FIXTURE, TRAIN_FIXTURE, NS_FIXTURE, NS_DATA,
+                 NS_TRAIN_FIXTURE):
         check(os.path.exists(path), f"fixture {path} not found")
     sys.path.insert(0, ROOT)
 
@@ -1123,11 +1486,8 @@ def run() -> tuple:
     from pigs_tpu_torch.models.state import covariance_of
     from pigs_tpu_torch.ops import aggregate_kernel as ak
     from pigs_tpu_torch.ops import mixture_kernel as mk
-    from pigs_tpu_torch.train.checkpoint import (restore_checkpoint,
-                                                 save_checkpoint)
-    from pigs_tpu_torch.train.pn import (TrainConfig, pn_epoch, rollout,
-                                         rollout_frames, rollout_metrics,
-                                         train)
+    from pigs_tpu_torch.train.pn import (pn_epoch, rollout, rollout_frames,
+                                         rollout_metrics)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1336,87 +1696,21 @@ def run() -> tuple:
     # means); sample_fields of the new state 2 K1, whose backward is 2 K2
     # (the samples need no gradient: no K3); adaptive_split 3 K1 (density,
     # value now, value before); sample_fields of the split state 2 K1.
-    ti.reset()
-    reset_counts(mk, ak)
-    prev = ti.prev_fields(ti.cfg)
-    epoch = pn_epoch(ti.cfg, ti.network, ti.opt, ti.state, prev, ti.samples,
-                     ti.time_samples, ti.bc_samples, ti.base_lr, ti.epsilon,
-                     ti.dt, ti.n_steps, loss_weight_floor=ti.floor,
-                     do_split=True, clip_norm=ti.clip, skip_nonfinite=True)
-    torch.cuda.synchronize()
-    counts["epoch"] = read_counts(mk, ak)
-    want_counts = (2 + 8 * ti.n_steps, 2 * ti.n_steps, 0)
-    print(f"[epoch] launches (K1, K2, K3, K4, K5) {counts['epoch']}, expected "
-          f"{want_counts}", flush=True)
-    check(counts["epoch"][:3] == want_counts,
-          f"epoch launches {counts['epoch']} != {want_counts}")
-    per_step = epoch.per_step.cpu().numpy()
-    check(bool(np.isfinite(per_step).all()), "epoch losses not finite")
-    jax_steps = ti.data["epoch_per_step"]
-    diverged = [i for i in range(ti.n_steps)
-                if not np.array_equal(epoch.active[i].cpu().numpy(),
-                                      ti.data["epoch_active"][i])]
-    first = diverged[0] if diverged else None
-    upto = ti.n_steps if first is None else first + 1
-    total_errs = np.abs(per_step[:, 5] - jax_steps[:, 5]) / np.abs(
-        jax_steps[:, 5])
-    print("[epoch] per-step total rel err vs JAX f64: "
-          + " ".join(f"{e:.2e}" for e in total_errs), flush=True)
-    print("[epoch] active counts: "
-          + " ".join(str(int(a.sum())) for a in epoch.active.cpu()), flush=True)
-    print(f"[epoch] first step whose active mask differs from JAX's: "
-          f"{'none' if first is None else first}", flush=True)
-    check(float(total_errs[:upto].max()) <= EPOCH_TOTAL_TOL,
-          f"epoch totals vs JAX {float(total_errs[:upto].max()):.3e} > "
-          f"{EPOCH_TOTAL_TOL} before the split decisions diverge")
+    counts["epoch"], first = split_epoch_phase(
+        ti, mk, ak, (2 + 8 * ti.n_steps, 2 * ti.n_steps, 0), "epoch")
 
     # 7. train() resumed from the fixture for 3 epochs, checkpoint, EMA rollout
-    shutil.rmtree(SCRATCH, ignore_errors=True)
-    ckpt_dir = os.path.join(SCRATCH, "resume")
-    epoch0 = int(ti.data["train_epoch"])
-    ti.reset()
-    save_checkpoint(ckpt_dir, epoch0, dict(ti.network.named_parameters()),
-                    ti.opt, [], ema=dict(zip(ti.names, ti.ema)))
-    tcfg = TrainConfig(
-        n_epochs=int(ti.data["train_n_epochs"]),
-        n_samples=int(ti.data["train_n_samples"]),
-        lr=float(ti.data["train_lr"]), lr_min=float(ti.data["train_lr_min"]),
-        dt=ti.dt, train_timesteps=int(ti.data["train_timesteps"]),
-        loss_weight_floor=ti.floor,
-        ema_decay=float(ti.data["train_ema_decay"]), clip_norm=ti.clip,
-        skip_nonfinite_updates=True, log_step=1)
     log = []
     reset_counts(mk, ak)
     t_train = time.perf_counter()
-    result = train(ti.cfg, tcfg, checkpoint_dir=ckpt_dir, resume=True,
-                   log_fn=log.append, device=dev)
+    result = resumed_train(ti, log, dev)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t_train
     counts["train"] = read_counts(mk, ak)
-    for line in log:
-        print(f"  train: {line}", flush=True)
-    check(any("Resumed" in line for line in log), "train() did not resume")
-    check(len(result.training_loss) == 3 and all(
-        np.isfinite(result.training_loss)), "train() losses")
     check(counts["train"][0] > 0 and counts["train"][1] > 0
           and counts["train"][2] == 0,
           f"train() launches (K1-K5) {counts['train']}")
-    names = ti.names
-    save_checkpoint(ckpt_dir, tcfg.n_epochs,
-                    dict(result.network.named_parameters()), result.opt_state,
-                    result.training_loss, ema=dict(zip(names, result.ema)))
-    back = restore_checkpoint(ckpt_dir, dev)
-    same = (back.epoch == tcfg.n_epochs
-            and back.training_loss == [float(x) for x in result.training_loss]
-            and all(torch.equal(back.params[k], p)
-                    for k, p in result.network.named_parameters())
-            and all(torch.equal(a, b) for a, b in
-                    zip(back.opt.mu + back.opt.nu + [back.opt.count],
-                        result.opt_state.mu + result.opt_state.nu
-                        + [result.opt_state.count]))
-            and all(torch.equal(back.ema[k], e)
-                    for k, e in zip(names, result.ema)))
-    check(same, "checkpoint round trip changed values")
+    back = check_round_trip(ti, result, dev)
     ema_net = make_network(cfg, frequencies=network.frequencies.cpu(),
                            device=dev)
     ema_net.load_state_dict(back.ema)
@@ -1430,7 +1724,6 @@ def run() -> tuple:
     check(abs(ema_metrics["mean_rel_norm"] - jax_mean) <= MEAN_REL_L2_TOL,
           f"EMA rollout mean rel-L2 {ema_metrics['mean_rel_norm']:.6f} vs "
           f"{jax_mean:.6f}")
-    shutil.rmtree(SCRATCH, ignore_errors=True)
 
     # 8. times.  K1 at the flagship's four main-path shapes and K2/K3 at
     # the two training shapes (each also checked bitwise deterministic).
@@ -1519,7 +1812,15 @@ def run() -> tuple:
         ("NS t=0", ns["cfg"], ns["network"], ns["state0"]),
         ("NS step 25", ns["cfg"], ns["network"], ns["state25"])])
 
+    # 11. NS training and the two training options, counted
+    nst = ns_train_phase(dev, mk, ak, card, ti)
+    counts.update(nst["counts"])
+    k1_abs = max([k1_abs] + [e["abs"] for e in nst["errs"]])
+    bwd_abs = max([bwd_abs] + [e["abs"] for e in nst["berrs"]])
+
     times["mixture_fwd"].update(ns["k1_times"])
+    times["mixture_fwd"].update(nst["k1_times"])
+    times["mixture_bwd_gauss"].update(nst["k2_times"])
     times.update(agg["kernel_times"])
     kernels = []
     for i, (name, source, line, max_abs) in enumerate((
@@ -1548,11 +1849,13 @@ def run() -> tuple:
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "launches_per_train_step": counts["epoch"][i] / ti.n_steps,
+            "launches_per_ns_train_step":
+                counts["ns_epoch"][i] / nst["n_steps"],
             "launches_per_rollout_step": {
                 "flagship": counts["rollout"][i] / steps,
                 "ns": counts["ns"][i] / ns["steps"]},
             "on_main_path": any(counts[p][i] for p in ("rollout", "epoch",
-                                                       "ns")),
+                                                       "ns", "ns_epoch")),
             "max_abs_err": max_abs,
             "timed": "ms (device), call_ms, plain_ms and bound_ms sum the "
                      "shapes of the *_by_shape fields",
@@ -1586,6 +1889,8 @@ def run() -> tuple:
         if name in step_profile:
             row["device_ms_per_pn_step"] = \
                 step_profile[name]["device_ms_per_step"]
+            row["device_ms_per_ns_pn_step"] = \
+                nst["profile"][name]["device_ms_per_step"]
         if i >= 3:
             key = "fwd" if i == 3 else "bwd"
             row["pairs_by_shape"] = col("pairs")
@@ -1603,6 +1908,10 @@ def run() -> tuple:
             "epoch_first_mask_divergence": first,
             "ns_rollout_ms": ns["ms"],
             "ns_mean_rel_l2": ns["mean_rel_l2"],
+            "ns_pn_step_ms": nst["step_ms"], "ns_train_3_epochs_s":
+                nst["train_s"],
+            "ns_ema_rollout_mean_rel_l2": nst["ema_mean_rel_l2"],
+            "ns_epoch_first_mask_divergence": nst["first"],
             "aggregate_pairs_differing": agg["differ"]}, card
 
 

@@ -128,29 +128,42 @@ def _subtree(data: dict, prefix: str) -> Dict[str, np.ndarray]:
     return {"params/" + k[len(prefix) + 1:]: data.pop(k) for k in keys}
 
 
+def _fixture_config(data: dict, dtype=torch.float32):
+    """The model config a fixture names: problem, nx, capacity and, where
+    the fixture names them (the NS fixtures), the split criteria; the
+    period follows from the problem."""
+    from pigs_tpu_torch.models.model import ModelConfig
+    from pigs_tpu_torch.pde import IntegrationRule, Problem
+    nx = int(data["config_nx"])
+    criteria = data.get("config_split_criteria")
+    return ModelConfig.create(Problem[str(data["config_problem"])],
+                              IntegrationRule.TRAPEZOID, nx=nx, ny=nx, d=2,
+                              scale=1.0, capacity=int(data["config_capacity"]),
+                              dtype=dtype,
+                              split_criteria=("value" if criteria is None
+                                              else str(criteria)))
+
+
 def load_train_fixture(path: str, device=None, dtype=torch.float32):
     """Load an exported training fixture
-    (``scripts/export_torch_fixture.py --kind train``).
+    (``scripts/export_torch_fixture.py --kind train`` or ``--kind
+    ns-train``).
 
     Returns ``(cfg, network, opt_state, ema, data)``: the model config in
-    ``dtype``, the network with the checkpoint's raw parameters, its Adam
-    state, the EMA parameters (a list in ``network.parameters()`` order),
-    all on ``device``, and the file's remaining arrays as numpy (the epoch's
-    inputs under ``input_*``, the JAX references under ``step_*`` and
-    ``epoch_*``, ``train_*`` the training recipe).
+    ``dtype`` (with the fixture's split criteria where it names them), the
+    network with the checkpoint's raw parameters, its Adam state, the EMA
+    parameters (a list in ``network.parameters()`` order), all on
+    ``device``, and the file's remaining arrays as numpy (the epoch's inputs
+    under ``input_*``, the JAX references under ``step_*`` and ``epoch_*``,
+    ``train_*`` the training recipe).
     """
-    from pigs_tpu_torch.models.model import ModelConfig, make_network
-    from pigs_tpu_torch.pde import IntegrationRule, Problem
+    from pigs_tpu_torch.models.model import make_network
 
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
     raw = {k: data.pop(k) for k in list(data) if k.startswith("params/")}
     ema, mu, nu = (_subtree(data, p) for p in ("ema", "adam_mu", "adam_nu"))
-    nx = int(data["config_nx"])
-    cfg = ModelConfig.create(Problem[str(data["config_problem"])],
-                             IntegrationRule.TRAPEZOID, nx=nx, ny=nx, d=2,
-                             scale=1.0, capacity=int(data["config_capacity"]),
-                             dtype=dtype)
+    cfg = _fixture_config(data, dtype)
     network = make_network(cfg, frequencies=torch.from_numpy(
         data["frequencies"]), device=device)
     network.load_state_dict({k: v.to(dtype) for k, v in
@@ -173,19 +186,12 @@ def load_fixture(path: str, device=None):
     float32 on ``device``, and the file's remaining arrays (``jax_frames``,
     ``fd_frames``, ...) as numpy.
     """
-    from pigs_tpu_torch.models.model import ModelConfig, make_network
-    from pigs_tpu_torch.pde import IntegrationRule, Problem
+    from pigs_tpu_torch.models.model import make_network
 
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
     flat = {k: data.pop(k) for k in list(data) if k.startswith("params/")}
-    nx = int(data["config_nx"])
-    criteria = data.get("config_split_criteria")
-    cfg = ModelConfig.create(Problem[str(data["config_problem"])],
-                             IntegrationRule.TRAPEZOID, nx=nx, ny=nx, d=2,
-                             scale=1.0, capacity=int(data["config_capacity"]),
-                             split_criteria=("value" if criteria is None
-                                             else str(criteria)))
+    cfg = _fixture_config(data)
     network = make_network(cfg, frequencies=torch.from_numpy(
         data["frequencies"]), device=device)
     network.load_state_dict(params_from_flax(flat))

@@ -57,6 +57,24 @@ frame 0 plus 50 steps), and writes:
 The ground-truth frames stay in the dataset file; the fixture does not copy
 them.
 
+``--kind ns-train`` restores the NS checkpoint's whole training state under
+results_ns_r5_vorttrain's recipe (``ns_train_config``), draws the inputs of
+the first epoch that ``train(ns_data=...)`` runs when it resumes at the
+checkpoint's epoch on the first seven trajectories (the last is held out),
+and runs the JAX package in float64 on the CPU from there.  It writes the
+``--kind train`` keys with these differences:
+
+  config_split_criteria, config_held_out   as for --kind ns
+  input_data_index      the stored state the epoch starts from (the input_*
+                        state fields hold it)
+  input_recon_targets   (train_timesteps, n_samples) the reconstruction
+                        targets: the trajectory's frame i + 1 at the samples
+  step_losses           [pde, bc, cons, init, mag, total], the total with
+                        the reconstruction term
+  step_recon            that term, 5 * mean((w - target)^2)
+  epoch_per_step        the split-regime epoch with the vorticity criteria,
+                        totals with the reconstruction term
+
 The port (pigs_tpu_torch) loads these files on a machine without JAX.
 
 Examples:
@@ -66,6 +84,7 @@ Examples:
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind train \
       --out artifacts/burgers_ns4096_ema2_train_torch.npz
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns-train
 """
 
 import argparse
@@ -311,6 +330,157 @@ def ns_config():
                               split_criteria="vorticity")
 
 
+def ns_train_config():
+    """The NS recipe of results_ns_r5_vorttrain (scripts/validate_ns.py with
+    the r4c flags that BENCHMARKS.md gives it: 2048 samples, 30 timesteps,
+    cosine lr 3e-4 -> 2e-5, loss-weight floor 0.05, EMA 0.999, clip 1.0,
+    skipped non-finite updates, split regime after epoch 10000), resumed for
+    three epochs past the checkpoint's 20000."""
+    from pigs_tpu.train.pn import TrainConfig
+    return TrainConfig(n_epochs=20003, n_samples=2048, lr=3e-4, lr_min=2e-5,
+                       dt=DT, train_timesteps=30, loss_weight_floor=0.05,
+                       split_epoch=10000, ema_decay=0.999, clip_norm=1.0,
+                       skip_nonfinite_updates=True)
+
+
+def export_ns_train(ckpt: str, data_path: str, out: str):
+    """Write the NS training fixture (see the module docstring)."""
+    with float32_default_normal():
+        _export_ns_train(ckpt, data_path, out)
+
+
+def _export_ns_train(ckpt: str, data_path: str, out: str):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from pigs_tpu.models.model import (adaptive_split, compute_loss,
+                                       forward_step, sample_fields)
+    from pigs_tpu.train.pn import NSDataset, _filter_finite, pn_step
+    from pigs_tpu.utils.sampling import (boundary_band_samples,
+                                         collocation_samples)
+
+    cfg, tcfg = ns_config(), ns_train_config()
+    network, opt, params, opt_state, ema, epoch = restore_training_state(
+        ckpt, cfg, tcfg)
+    adam = adam_of(opt_state)
+    print(f"restored {ckpt} at epoch {epoch}; adam count {int(adam.count)}",
+          flush=True)
+    data = NSDataset.load(data_path)
+    held_out = int(data.means.shape[0]) - 1
+    train_data = NSDataset(*(x[:-1] for x in data))
+
+    # The first epoch of train(resume=True, ns_data=train_data): key split
+    # as train() and train_epoch() do it, in float32 as the run draws it.
+    key = jax.random.PRNGKey(tcfg.seed)
+    key, sub = jax.random.split(key)
+    _, k_s, k_t, k_bc, k_n, _ = jax.random.split(sub, 6)
+    m = tcfg.n_samples
+    samples = collocation_samples(k_s, m, cfg.d, cfg.scale, cfg.dtype)
+    time_samples = jax.random.uniform(k_t, (m,), cfg.dtype)
+    bc_samples = boundary_band_samples(k_bc, m, cfg.scale, cfg.dtype)
+    index = int(jax.random.randint(k_n, (), 0, train_data.means.shape[0]))
+    state = train_data.state_for(cfg, index)
+    targets = jnp.stack([train_data.recon_target(index, i + 1, samples)
+                         for i in range(tcfg.train_timesteps)])
+    n_steps = min(min(epoch // tcfg.bootstrap_rate + 1,
+                      tcfg.initial_timesteps), tcfg.train_timesteps)
+    base_lr = tcfg.base_lr_at(epoch)
+    print(f"trajectory {index}, {n_steps} steps, base lr {base_lr:.6e}",
+          flush=True)
+
+    # Everything below in float64.
+    f64 = jnp.float64
+    up = lambda tree: jax.tree_util.tree_map(
+        lambda x: x.astype(f64) if jnp.issubdtype(x.dtype, jnp.floating)
+        else x, tree)
+    cfg64 = cfg._replace(dtype=f64)
+    params64, opt64, state64 = up(params), up(opt_state), up(state)
+    smp, ts, bc, tg = up((samples, time_samples, bc_samples, targets))
+    prev = sample_fields(cfg64, state64, smp, bc)
+
+    def recon_of(curr, target):
+        recon = 5.0 * jnp.mean((curr.w - target) ** 2)
+        return jnp.where(jnp.isfinite(recon), recon, 0.0)
+
+    def loss_fn(p):
+        new_state, deltas = forward_step(cfg64, network, p, state64, t=0.0)
+        curr = sample_fields(cfg64, new_state, smp, bc)
+        total = _filter_finite(compute_loss(cfg64, new_state, deltas, prev,
+                                            curr, smp, ts, 0.0, tcfg.dt)).total
+        return total + recon_of(curr, tg[0])
+
+    grads = jax.grad(loss_fn)(params64)
+    step_args = dict(loss_weight_floor=jnp.asarray(tcfg.loss_weight_floor, f64),
+                     skip_nonfinite=tcfg.skip_nonfinite_updates)
+    (p1, _, _, curr, losses, total, lw) = pn_step(
+        cfg64, network, opt, params64, opt64, state64, prev, smp, ts, bc,
+        jnp.ones((), f64), jnp.asarray(base_lr, f64), tcfg.epsilon,
+        jnp.asarray(0.0, f64), tcfg.dt, recon_target=tg[0], **step_args)
+    step_losses = np.asarray([losses.pde, losses.bc, losses.conservation,
+                              losses.initial, losses.magnitude, total])
+    step_recon = float(recon_of(curr, tg[0]))
+    print(f"one pn_step: losses {step_losses}, recon {step_recon}",
+          flush=True)
+
+    # The split-regime epoch, step by step (train_epoch's loop form).
+    split = jax.jit(adaptive_split, static_argnames=("cfg",))
+    sample = jax.jit(sample_fields, static_argnames=("cfg",))
+    p, o, s, pf, loss_weight = params64, opt64, state64, prev, jnp.ones((), f64)
+    per_step, active = [], []
+    for i in range(n_steps):
+        before = s
+        (p, o, s, pf, losses, total, loss_weight) = pn_step(
+            cfg64, network, opt, p, o, s, pf, smp, ts, bc, loss_weight,
+            jnp.asarray(base_lr, f64), tcfg.epsilon,
+            jnp.asarray(i * tcfg.dt, f64), tcfg.dt, recon_target=tg[i],
+            **step_args)
+        s = split(cfg64, s, before)
+        pf = sample(cfg64, s, smp, bc)
+        per_step.append([float(x) for x in (losses.pde, losses.bc,
+                                            losses.conservation,
+                                            losses.initial, losses.magnitude,
+                                            total)])
+        active.append(np.asarray(s.active))
+        print(f"epoch step {i}: total {per_step[-1][5]:.6f}, active "
+              f"{int(active[-1].sum())}", flush=True)
+
+    prefixed = lambda prefix, tree: {
+        prefix + k[len("params"):]: v for k, v in flatten_params(tree).items()}
+    np.savez_compressed(
+        out, **flatten_params(params), **prefixed("ema", ema),
+        **prefixed("adam_mu", adam.mu), **prefixed("adam_nu", adam.nu),
+        adam_count=np.asarray(adam.count),
+        frequencies=frequencies_of(cfg),
+        config_problem=np.asarray(cfg.problem.name),
+        config_nx=np.asarray(NX), config_capacity=np.asarray(cfg.capacity),
+        config_dt=np.asarray(DT),
+        config_split_criteria=np.asarray(cfg.split_criteria),
+        config_held_out=np.asarray(held_out),
+        train_epoch=np.asarray(epoch), train_n_epochs=np.asarray(tcfg.n_epochs),
+        train_n_samples=np.asarray(m), train_lr=np.asarray(tcfg.lr),
+        train_lr_min=np.asarray(tcfg.lr_min), train_base_lr=np.asarray(base_lr),
+        train_dt=np.asarray(tcfg.dt), train_epsilon=np.asarray(tcfg.epsilon),
+        train_timesteps=np.asarray(tcfg.train_timesteps),
+        train_loss_weight_floor=np.asarray(tcfg.loss_weight_floor),
+        train_clip_norm=np.asarray(tcfg.clip_norm),
+        train_ema_decay=np.asarray(tcfg.ema_decay),
+        train_split_epoch=np.asarray(tcfg.split_epoch),
+        train_n_steps=np.asarray(n_steps), input_data_index=np.asarray(index),
+        input_samples=np.asarray(samples),
+        input_time_samples=np.asarray(time_samples),
+        input_bc_samples=np.asarray(bc_samples),
+        input_recon_targets=np.asarray(targets),
+        **{f"input_{f}": np.asarray(getattr(state, f))
+           for f in state._fields},
+        step_losses=step_losses, step_recon=np.asarray(step_recon),
+        **prefixed("step_grads", grads), **prefixed("step_params", p1),
+        step_loss_weight=np.asarray(lw),
+        epoch_per_step=np.asarray(per_step),
+        epoch_active=np.stack(active), **prefixed("epoch_params", p))
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
+
+
 def export_ns(ckpt: str, data_path: str, out: str):
     """Write the NS rollout fixture (see the module docstring)."""
     with float32_default_normal():
@@ -380,21 +550,29 @@ def _export_ns(ckpt: str, data_path: str, out: str):
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--kind", choices=["rollout", "train", "ns"],
+    p.add_argument("--kind", choices=["rollout", "train", "ns", "ns-train"],
                    default="rollout")
     p.add_argument("--ckpt", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_ckpt_30000 "
                         "(rollout, train) or artifacts/ns_vorttrain_ckpt_20000 "
-                        "(ns)")
+                        "(ns, ns-train)")
     p.add_argument("--ns-data", default="artifacts/ns_data_8traj.npz")
     p.add_argument("--out", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_torch.npz "
-                        "(rollout), ..._train_torch.npz (train) or "
-                        "artifacts/ns_vorttrain_torch.npz (ns)")
+                        "(rollout), ..._train_torch.npz (train), "
+                        "artifacts/ns_vorttrain_torch.npz (ns) or "
+                        "artifacts/ns_vorttrain_train_torch.npz (ns-train)")
     args = p.parse_args()
     if args.kind == "ns":
         export_ns(args.ckpt or "artifacts/ns_vorttrain_ckpt_20000",
                   args.ns_data, args.out or "artifacts/ns_vorttrain_torch.npz")
+        return
+    if args.kind == "ns-train":
+        import jax
+        jax.config.update("jax_enable_x64", True)
+        export_ns_train(args.ckpt or "artifacts/ns_vorttrain_ckpt_20000",
+                        args.ns_data,
+                        args.out or "artifacts/ns_vorttrain_train_torch.npz")
         return
     args.ckpt = args.ckpt or "artifacts/burgers_ns4096_ema2_ckpt_30000"
     if args.kind == "train":

@@ -348,14 +348,31 @@ def test_train_resumes_and_logs(tmp_path):
         assert torch.isfinite(e).all() and e.shape == p.shape
 
 
-def test_unported_options_raise():
-    cfg = tmodel.ModelConfig.create(Problem.BURGERS, nx=4, ny=4, capacity=140)
-    for tcfg in (tpn.TrainConfig(noise_std=0.1),
-                 tpn.TrainConfig(adaptive_sampling=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpn.train(cfg, tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpn.train(cfg, tpn.TrainConfig(), ns_data=object())
+@pytest.mark.parametrize("option", ["noise_std", "adaptive_sampling",
+                                    "ns_data"])
+def test_training_options_run(option):
+    """Each training option beyond the defaults trains: two epochs with
+    finite losses (their parity is in tests/test_torch_ns_train.py)."""
+    tcfg = tpn.TrainConfig(n_epochs=2, n_samples=32, log_step=1,
+                           train_timesteps=2, dt=0.1)
+    ns_data = None
+    if option == "ns_data":
+        cfg = tmodel.ModelConfig.create(Problem.NAVIER_STOKES, nx=3, ny=3,
+                                        capacity=16,
+                                        split_criteria="vorticity")
+        rng = np.random.default_rng(0)
+        ns_data = tpn.NSDataset(*(torch.from_numpy(x) for x in (
+            rng.uniform(-0.8, 0.8, (2, 9, 2)), rng.normal(0, 0.5, (2, 9, 2)),
+            np.exp(rng.normal(-1.5, 0.1, (2, 9, 2))),
+            rng.normal(0, 0.2, (2, 9, 1)), rng.normal(0, 1, (2, 8, 8, 4)))))
+    else:
+        cfg = tmodel.ModelConfig.create(Problem.BURGERS, nx=4, ny=4,
+                                        capacity=140)
+        tcfg = tcfg._replace(**{option: 0.5})
+    result = tpn.train(cfg, tcfg, log_fn=lambda _: None, ns_data=ns_data)
+    assert len(result.training_loss) == 2 and all(
+        np.isfinite(result.training_loss))
+    assert int(result.opt_state.count) == 2
 
 
 def test_flagship_fixture_step_matches_stored_jax_f64():
