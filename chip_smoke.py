@@ -112,9 +112,31 @@ Phases, in order; any failure exits non-zero:
                (checked against its twin and the f64 oracle, equal to a
                second launch, and timed), finite losses, and every boundary
                Gaussian's value unchanged by the noise.
+ 12. no-mlp    the no-MLP direct solver from artifacts/no_mlp_torch.npz
+               (the committed 2-D Burgers recipe: capacity 1024, 1024
+               samples): (b) the fixture's 100-iteration dynamics block on
+               its injected draws in float32 through K1/K2 against the JAX
+               float64 block (mean loss, parameters, summed gradients, Adam
+               moments within NO_MLP_BLOCK_TOL), exactly 200 K1, 100 K2 and
+               0 K3 launches; (c) densify at full width with min_keep 0 and
+               > 0: active masks equal JAX's, the fresh rows' moments
+               zero; (d) solve() at full width, only timesteps cut: 2-D
+               Burgers (IC fit + 3 steps, each <= 0.01 rel-L2 against the
+               port's FD from the rendered t=0 field, 400 active), 1-D
+               Burgers at solve_no_mlp.py's defaults (IC fit < 0.05, steps
+               1-3 <= 0.02 against the FD solution from exp(-2 x^2)) and 2-D
+               WAVE with active_sampling 0.5 (IC fit + 1 step, finite), each
+               with exact launch counts (an IC-fit iteration 1 K1 + 1 K2, a
+               dynamics iteration 2 K1 + 1 K2, never K3); (a) K1 and K2 at
+               every no-MLP shape (1024x1024 orders 2 and 0, the 4096x1024
+               render, WAVE 2048x1024 order 2 c=2, 1-D 128x1024 order 2
+               embedded in d=2) against their twins and the f64 oracle,
+               timed as in 8; (e) a 100-iteration block's host time and a
+               profile of 5 dynamics iterations.
 
 The line before the card's is the kernels line: per kernel its launches
-(per path, per training step, per NS training step, per rollout step),
+(per path, per training step, per NS training step, per rollout step, per
+no-MLP iteration),
 errors, device, graph, call and plain times and bounds by shape, and
 library_ms (null: no single PyTorch call computes any of these functions).
 
@@ -139,6 +161,7 @@ NS_FIXTURE = os.path.join(ROOT, "artifacts", "ns_vorttrain_torch.npz")
 NS_DATA = os.path.join(ROOT, "artifacts", "ns_data_8traj.npz")
 NS_TRAIN_FIXTURE = os.path.join(ROOT, "artifacts",
                                 "ns_vorttrain_train_torch.npz")
+NO_MLP_FIXTURE = os.path.join(ROOT, "artifacts", "no_mlp_torch.npz")
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 PERF_SUITE_SIZES = (512, 1664, 4096, 8192)  # benchmarks/perf_suite.py
 
@@ -151,6 +174,14 @@ STEP_LOSS_TOL = 1e-4     # pn_step loss terms, float32 vs JAX float64
 STEP_GRAD_TOL = 1e-3     # pn_step flattened gradient, norm-relative
 STEP_UPDATE_TOL = 1e-2   # pn_step parameter update, norm-relative
 EPOCH_TOTAL_TOL = 1e-2   # per-step totals while the split decisions agree
+# The no-MLP fixture's 100-iteration block in float32 vs JAX float64: twice
+# what the port's float32 plain path reaches on the CPU against the same
+# fixture with 8 threads (tests/test_torch_no_mlp.py prints those errors).
+NO_MLP_BLOCK_TOL = {"loss": 3.9e-5, "params": 4.5e-6, "grad_acc": 8.4e-5,
+                    "mu": 1.7e-4, "nu": 8.8e-6}
+NO_MLP_2D_STEP_TOL = 0.01   # 2-D Burgers steps 1-3 vs FD (JAX: 0.0021-0.0044)
+NO_MLP_1D_IC_TOL = 0.05     # 1-D IC fit vs exp(-2 x^2) (tests/test_numerical.py)
+NO_MLP_1D_STEP_TOL = 0.02   # 1-D steps 1-3 vs FD (JAX: 0.0023-0.0053)
 
 DEVICE_RUNS = 20         # launches in one profiled window (device_ms)
 GRAPH_LAUNCHES = 100     # raw launches captured in one CUDA graph (graph_ms)
@@ -623,7 +654,8 @@ def time_k1(label, mu, con, val, smp, order, mask, period, mk, card) -> dict:
     m, n, c = smp.shape[0], mu.shape[0], val.shape[1]
     t["bound_ms"], t["bound_by"] = mixture_bound(
         "mixture_fwd", m, n, order, c, period is not None)
-    t["grid"] = grid_of(mk, mk.fwd_geometry(m, n, mk._sm_count(0)))
+    t["grid"] = grid_of(mk, mk.fwd_geometry(m, n, mk._sm_count(0)),
+                        mk.FWD_SLICE_UNIT)
     print(describe_kernel_times("mixture_fwd", label, t, card), flush=True)
     t["graph_ms_by_blocks_per_sm"] = sweep_grid(
         "mixture_fwd", label, mk, lambda b: mk.fwd_geometry(m, n,
@@ -646,13 +678,17 @@ def sweep_grid(name, label, mk, geometry, launch, card) -> dict:
     return times
 
 
-def grid_of(mk, geometry) -> dict:
+def grid_of(mk, geometry, unit: int) -> dict:
     """A K1 or K2 geometry ``(tiles, slices, slice_len)`` as the kernels
-    line reports it; fails unless it puts 2 blocks on every SM."""
+    line reports it; fails unless it puts 2 blocks on every SM or, where the
+    summed axis is too short for that, cuts it into slices of the slicing
+    ``unit`` (the most the geometry helpers' contract allows)."""
     tiles, slices, slice_len = geometry
     sms = mk._sm_count(0)
-    check(tiles * slices >= 2 * sms,
-          f"grid of {tiles} x {slices} blocks is under 2 per SM ({sms} SMs)")
+    check(tiles * slices >= 2 * sms or slice_len == unit,
+          f"grid of {tiles} x {slices} slices of {slice_len} is under 2 "
+          f"blocks per SM ({sms} SMs) with the axis still above the unit "
+          f"{unit}")
     return {"blocks": tiles * slices, "blocks_per_sm": tiles * slices / sms,
             "tiles": tiles, "slices": slices, "slice_len": slice_len}
 
@@ -679,7 +715,8 @@ def time_k23(label, packed, smp, order, mk, gen, card, period=None,
         t["bound_ms"], t["bound_by"] = mixture_bound(name, m, n, order, c,
                                                      period is not None)
         if name == "mixture_bwd_gauss":
-            t["grid"] = grid_of(mk, mk.gauss_geometry(m, n, mk._sm_count(0)))
+            t["grid"] = grid_of(mk, mk.gauss_geometry(m, n, mk._sm_count(0)),
+                                mk.BWD_SLICE_UNIT)
         print(describe_kernel_times(name, label, t, card), flush=True)
         if name == "mixture_bwd_gauss":
             t["graph_ms_by_blocks_per_sm"] = sweep_grid(
@@ -1458,6 +1495,271 @@ def time_aggregation(ak, f, tr, q, k, fr, dist, means, radii, mask,
     return times
 
 
+def no_mlp_block_inputs(cfg, data, dev, iters=None):
+    """The fixture's block on the card: ``(params, opt_state, active, prev,
+    draws, count)`` in float32, ``iters`` of its draws (all by default)."""
+    import torch
+
+    from pigs_tpu_torch.convert import (no_mlp_adam_from_optax, no_mlp_arrays,
+                                        no_mlp_params_from_jax)
+    from pigs_tpu_torch.train import no_mlp as nm
+    kw = dict(device=dev, dtype=torch.float32)
+    params = nm.RawParams(*(x.requires_grad_() for x in no_mlp_params_from_jax(
+        no_mlp_arrays(data, "start"), **kw)))
+    opt = no_mlp_adam_from_optax(no_mlp_arrays(data, "start_adam_mu"),
+                                 no_mlp_arrays(data, "start_adam_nu"),
+                                 data["start_adam_count"], **kw)
+    with torch.no_grad():
+        prev = nm.concrete(cfg, no_mlp_params_from_jax(
+            no_mlp_arrays(data, "ic"), **kw)) + (
+                torch.tensor(data["ic_active"], device=dev),)
+    sl = slice(None, iters)
+    draws = nm.BlockDraws(torch.tensor(data["draws_base"][sl], **kw), None,
+                          None, torch.tensor(data["draws_time"][sl], **kw))
+    return (params, opt, torch.tensor(data["start_active"], device=dev), prev,
+            draws, int(data["start_adam_count"]))
+
+
+def no_mlp_solve(label, cfg, n_steps, dev, mk, ak, densify_every=None):
+    """``solve`` on the card from a seeded generator, counted: the
+    trajectory, its launches (K1-K5), the seconds it took, and the
+    iterations of the IC fit and of the dynamics steps.  An IC-fit
+    iteration launches one K1 and one K2, a dynamics iteration two K1s (the
+    previous mixture and the current one) and one K2; none launches K3."""
+    import torch
+
+    from pigs_tpu_torch.train.no_mlp import solve
+    gen = torch.Generator(device=dev).manual_seed(0)
+    reset_counts(mk, ak)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = solve(cfg, gen, n_steps, densify_every=densify_every, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(mk, ak)
+    ic = traj[0]["iters"]
+    dyn = sum(s["iters"] for s in traj[1:])
+    want = (ic + 2 * dyn, ic + dyn, 0, 0, 0)
+    losses = " ".join(f"{s['loss']:.3e}" for s in traj)
+    print(f"[no-mlp] {label}: {n_steps - 1} steps after the IC fit in "
+          f"{seconds:.2f} s, iterations {[s['iters'] for s in traj]} "
+          f"({(ic + dyn) / seconds:.1f}/s), losses {losses}, active "
+          f"{[int(s['active'].sum()) for s in traj]}; launches (K1-K5) "
+          f"{counts}, expected {want}", flush=True)
+    check(counts == want, f"no-MLP {label} launches {counts} != {want}")
+    return traj, counts, seconds, ic + dyn
+
+
+def no_mlp_phase(dev, mk, ak, card) -> dict:
+    """Phase 12: the no-MLP direct solver on the card (see the module
+    docstring)."""
+    import torch
+
+    from pigs_tpu_torch.convert import (load_no_mlp_fixture, no_mlp_arrays,
+                                        no_mlp_adam_from_optax,
+                                        no_mlp_params_from_jax)
+    from pigs_tpu_torch.ops.mixture import embed_d1, eval_mixture
+    from pigs_tpu_torch.pde import Problem
+    from pigs_tpu_torch.train import no_mlp as nm
+    from pigs_tpu_torch.utils.fd import solve_fd_1d, solve_fd_2d
+    from pigs_tpu_torch.utils.sampling import grid_samples
+    cfg, densify_every, data = load_no_mlp_fixture(NO_MLP_FIXTURE)
+    out = {"counts": {}, "k1_times": {}, "k2_times": {}, "errs": [],
+           "berrs": []}
+
+    # (b) the fixture's 100-iteration block against JAX float64, counted.
+    params, opt, active, prev, draws, count = no_mlp_block_inputs(cfg, data,
+                                                                  dev)
+    reset_counts(mk, ak)
+    params, opt, grad, loss = nm._run_block(cfg, params, opt, active, prev,
+                                            False, draws, count)
+    torch.cuda.synchronize()
+    counts = out["counts"]["no_mlp_block"] = read_counts(mk, ak)
+    iters = out["iters"] = cfg.block_iters
+    want = (2 * iters, iters, 0, 0, 0)
+    arr = lambda p: no_mlp_arrays(data, p)
+
+    def worst(got, prefix):
+        return max(rel_err(a.detach().cpu(), torch.tensor(b))
+                   for a, b in zip(got, arr(prefix)))
+    errs = {"loss": abs(loss.item() - float(data["block_loss"]))
+            / abs(float(data["block_loss"])),
+            "params": worst(params, "block"),
+            "grad_acc": worst(grad, "block_grad_acc"),
+            "mu": worst(opt.mu, "block_adam_mu"),
+            "nu": worst(opt.nu, "block_adam_nu")}
+    print(f"[no-mlp] fixture block ({iters} iterations, 1024 samples x 1024 "
+          f"Gaussians, float32 through K1/K2) vs JAX float64: "
+          + ", ".join(f"{k} {v:.3e} (tol {NO_MLP_BLOCK_TOL[k]:.1e})"
+                      for k, v in errs.items())
+          + f"; launches (K1-K5) {counts}, expected {want}", flush=True)
+    check(counts == want, f"no-MLP block launches {counts} != {want}")
+    check(int(opt.count) == int(data["block_adam_count"]),
+          f"no-MLP block Adam count {int(opt.count)}")
+    for k, e in errs.items():
+        check(e <= NO_MLP_BLOCK_TOL[k],
+              f"no-MLP block {k} vs JAX f64 {e:.3e} > {NO_MLP_BLOCK_TOL[k]}")
+    out["block_errs"] = errs
+
+    # (c) densify at full width: masks equal JAX's, fresh moments zero.
+    d_active = torch.tensor(data["densify_in_active"], device=dev)
+    for tag, min_keep in (("densify0", 0),
+                          ("densifyk", int(data["densify_min_keep"]))):
+        d_opt = no_mlp_adam_from_optax(arr("start_adam_mu"),
+                                       arr("start_adam_nu"),
+                                       data["start_adam_count"], device=dev)
+        d_params, d_opt, d_new = nm.densify(
+            cfg._replace(min_keep=min_keep),
+            no_mlp_params_from_jax(arr("densify_in"), device=dev), d_opt,
+            d_active, torch.tensor(data["densify_mean_grad"], device=dev))
+        fresh = (d_new & ~d_active) | (d_active & ~d_new)
+        written = (d_params.raw_means
+                   != torch.tensor(data["densify_in/raw_means"], device=dev)
+                   ).any(-1)
+        zero = all(bool((m[fresh | written] == 0).all())
+                   for m in d_opt.mu + d_opt.nu)
+        same = bool((d_new.cpu().numpy() == data[f"{tag}_active"]).all())
+        print(f"[no-mlp] densify min_keep {min_keep}: {int(d_new.sum())} "
+              f"active (JAX {int(data[f'{tag}_active'].sum())}), "
+              f"{int(written.sum())} children; masks equal: {same}; fresh "
+              f"moments zero: {zero}", flush=True)
+        check(same, f"no-MLP densify min_keep {min_keep}: masks differ")
+        check(zero and bool(written.any()),
+              f"no-MLP densify min_keep {min_keep}: moments or children")
+
+    # (d) short solves through solve() at full width; only timesteps cut.
+    # 2-D Burgers, the committed recipe: IC fit + 3 steps against the FD
+    # solution from the rendered t=0 field.
+    traj, out["counts"]["no_mlp_burgers_2d"], secs, n_it = no_mlp_solve(
+        "2-D Burgers", cfg, 4, dev, mk, ak, densify_every)
+    res = 64
+    xs = grid_samples(res, 2, cfg.scale, device=dev)
+    with torch.no_grad():
+        fields = torch.stack([eval_mixture(
+            *nm.concrete(cfg, s["params"]), xs, order=0,
+            mask=s["active"]).u.reshape(res, res) for s in traj])
+    gt = solve_fd_2d(fields[0], cfg.scale, cfg.dt, len(traj) - 1,
+                     problem="burgers", nu=cfg.nu)
+    rel2 = [rel_err(a, b) for a, b in zip(fields, gt)]
+    counts2 = [int(s["active"].sum()) for s in traj]
+    print(f"[no-mlp] 2-D Burgers per-step rel-L2 vs the port's FD: "
+          + " ".join(f"{v:.4f}" for v in rel2) + f" (committed JAX run: "
+          f"0.0021 0.0029 0.0044); active {counts2}; {n_it / secs:.1f} "
+          f"iterations/s ({card})", flush=True)
+    check(bool(torch.isfinite(fields).all()), "2-D Burgers fields not finite")
+    check(max(rel2[1:]) <= NO_MLP_2D_STEP_TOL,
+          f"2-D Burgers steps 1-3 rel-L2 {max(rel2[1:]):.4f} > "
+          f"{NO_MLP_2D_STEP_TOL}")
+    check(counts2 == [400] * len(traj), f"2-D Burgers active {counts2}")
+    out.update(burgers_2d_rel_l2=rel2, burgers_2d_s=secs,
+               burgers_2d_iters=n_it)
+    state_2d = traj[0]
+
+    # 1-D Burgers, solve_no_mlp.py's defaults: IC fit + 3 steps against
+    # the FD solution from exp(-2 x^2) on 201 points.
+    cfg1 = nm.NoMLPConfig(problem=Problem.BURGERS, d=1)
+    traj1, out["counts"]["no_mlp_burgers_1d"], secs1, n_it1 = no_mlp_solve(
+        "1-D Burgers", cfg1, 4, dev, mk, ak)
+    x1 = (torch.linspace(-1, 1, 201, device=dev) * cfg1.scale).reshape(-1, 1)
+    gt1 = solve_fd_1d(torch.exp(-2.0 * x1[:, 0] ** 2), cfg1.scale, cfg1.dt, 3,
+                      problem="burgers", nu=cfg1.nu)
+    with torch.no_grad():
+        rel1 = [rel_err(eval_mixture(*nm.concrete(cfg1, s["params"]), x1,
+                                     order=0, mask=s["active"]).u[:, 0], g)
+                for s, g in zip(traj1, gt1)]
+    print(f"[no-mlp] 1-D Burgers per-step rel-L2 vs the port's FD: "
+          + " ".join(f"{v:.4f}" for v in rel1) + " (BENCHMARKS.md, JAX: "
+          "0.0023 0.0053 0.0043 for steps 1-3)", flush=True)
+    check(rel1[0] < NO_MLP_1D_IC_TOL,
+          f"1-D IC fit rel-L2 {rel1[0]:.4f} >= {NO_MLP_1D_IC_TOL}")
+    check(max(rel1[1:]) <= NO_MLP_1D_STEP_TOL,
+          f"1-D steps 1-3 rel-L2 {max(rel1[1:]):.4f} > {NO_MLP_1D_STEP_TOL}")
+    out.update(burgers_1d_rel_l2=rel1, burgers_1d_s=secs1)
+
+    # 2-D WAVE, the committed wave recipe: IC fit + 1 step, finite, no K3.
+    cfgw = cfg._replace(problem=Problem.WAVE, dt=0.01, n_samples=2048,
+                        active_sampling=0.5)
+    trajw, out["counts"]["no_mlp_wave_2d"], secsw, _ = no_mlp_solve(
+        "2-D WAVE (active_sampling 0.5)", cfgw, 2, dev, mk, ak,
+        densify_every)
+    with torch.no_grad():
+        wf = torch.stack([eval_mixture(*nm.concrete(cfgw, s["params"]), xs,
+                                       order=0, mask=s["active"]).u
+                          for s in trajw])
+    check(bool(torch.isfinite(wf).all()), "2-D WAVE fields not finite")
+    out["wave_2d_s"] = secsw
+
+    # (a) K1 and K2 at every no-MLP shape: the twin and the f64 oracle,
+    # bitwise determinism, then timed as in phase 8.
+    gen = torch.Generator().manual_seed(12)
+    samples = (torch.tensor(data["draws_base"][0], device=dev) * 2.0
+               - 1.0) * cfg.scale
+    start = no_mlp_params_from_jax(arr("start"), device=dev)
+    wave = trajw[0]
+    wdraws = nm.block_draws(cfgw, torch.Generator(device=dev).manual_seed(1),
+                            wave["active"], False)
+    wsamples = nm.draw_samples(cfgw, wdraws.base[0], wave["params"],
+                               wdraws.idx[0], wdraws.z[0])
+    s1 = traj1[1]
+    m1, c1, v1 = nm.concrete(cfg1, s1["params"])
+    x128 = (torch.rand((128, 1), generator=gen) * 2.0 - 1.0).to(dev) * 2.5
+    e_means, e_conics, e_x128 = embed_d1(m1, c1, x128)
+    with torch.no_grad():
+        sm, sc, sv = nm.concrete(cfg, start)
+        im, ic_, iv = nm.concrete(cfg, state_2d["params"])
+        wm, wc, wv = nm.concrete(cfgw, wave["params"])
+    act2 = torch.tensor(data["start_active"], device=dev)
+    n = cfg.capacity
+    shapes = {
+        f"no-MLP 1024x{n} order 2 (dynamics; 2 K1, 1 K2 an iteration)":
+            (sm, sc, sv, samples, 2, act2, True),
+        f"no-MLP 1024x{n} order 0 (IC fit; 1 K1, 1 K2 an iteration)":
+            (im, ic_, iv, samples, 0, state_2d["active"], True),
+        f"no-MLP {xs.shape[0]}x{n} order 0 (64x64 render)":
+            (sm, sc, sv, xs, 0, act2, False),
+        f"no-MLP WAVE 2048x{n} order 2 c=2 (dynamics, active sampling)":
+            (wm, wc, wv, wsamples, 2, wave["active"], True),
+        f"no-MLP 1-D 128x{n} order 2 (dynamics, embedded in d=2)":
+            (e_means, e_conics, v1, e_x128, 2, s1["active"], True),
+    }
+    for label, (mu, con, val, smp, order, mask, grad) in shapes.items():
+        with torch.inference_mode():
+            out["errs"].append(compare_case(label, mu, con, val, smp, order,
+                                            mask, None, mk))
+            out["k1_times"][label] = time_k1(label, mu, con, val, smp, order,
+                                             mask, None, mk, card)
+        if not grad:
+            continue
+        out["berrs"].append(compare_backward(label, mu, con, val, smp, order,
+                                             mask, None, mk, gen))
+        if label.startswith("no-MLP 1-D"):   # and as the solver sends it
+            out["berrs"].append(compare_backward(
+                label + " (d=1)", m1, c1, v1, x128, order, s1["active"], None,
+                mk, gen))
+        with torch.inference_mode():
+            packed = (mu.contiguous(), mk.pack_conics(con).contiguous(),
+                      (val * mask.float()[:, None]).contiguous())
+            out["k2_times"][label] = time_k23(
+                label, packed, smp, order, mk, gen, card,
+                with_k3=False)["mixture_bwd_gauss"]
+
+    # (e) 5 dynamics iterations: time and profile.
+    cfg5 = cfg._replace(block_iters=5)
+    block = no_mlp_block_inputs(cfg, data, dev)
+    out["block_ms"] = statistics.median(
+        host_ms(lambda: nm._run_block(cfg, *block[:4], False, *block[4:]))
+        for _ in range(3))
+    print(f"[times] no-MLP block of {iters} dynamics iterations: "
+          f"{out['block_ms']:.2f} ms ({out['block_ms'] / iters:.3f} ms an "
+          f"iteration; median of 3, host clock with device syncs; {card})",
+          flush=True)
+    five = no_mlp_block_inputs(cfg5, data, dev, iters=5)
+    out["profile"] = profile_ms(
+        lambda: nm._run_block(cfg5, *five[:4], False, *five[4:]), 5,
+        "no-MLP dynamics iterations", card)
+    return out
+
+
 def describe_times(times) -> str:
     return "; ".join(f"{impl} fwd {times[(impl, 'fwd')]:.4f} ms, fwd+bwd "
                      f"{times[(impl, 'bwd')]:.4f} ms"
@@ -1475,7 +1777,7 @@ def run() -> tuple:
         raise SmokeFailure(f"pigs_tpu_torch/ not found beside {__file__}: run "
                            "from a checkout of the repo")
     for path in (FIXTURE, TRAIN_FIXTURE, NS_FIXTURE, NS_DATA,
-                 NS_TRAIN_FIXTURE):
+                 NS_TRAIN_FIXTURE, NO_MLP_FIXTURE):
         check(os.path.exists(path), f"fixture {path} not found")
     sys.path.insert(0, ROOT)
 
@@ -1818,9 +2120,17 @@ def run() -> tuple:
     k1_abs = max([k1_abs] + [e["abs"] for e in nst["errs"]])
     bwd_abs = max([bwd_abs] + [e["abs"] for e in nst["berrs"]])
 
+    # 12. the no-MLP direct solver, counted
+    nmp = no_mlp_phase(dev, mk, ak, card)
+    counts.update(nmp["counts"])
+    k1_abs = max([k1_abs] + [e["abs"] for e in nmp["errs"]])
+    bwd_abs = max([bwd_abs] + [e["abs"] for e in nmp["berrs"]])
+
     times["mixture_fwd"].update(ns["k1_times"])
     times["mixture_fwd"].update(nst["k1_times"])
+    times["mixture_fwd"].update(nmp["k1_times"])
     times["mixture_bwd_gauss"].update(nst["k2_times"])
+    times["mixture_bwd_gauss"].update(nmp["k2_times"])
     times.update(agg["kernel_times"])
     kernels = []
     for i, (name, source, line, max_abs) in enumerate((
@@ -1854,8 +2164,10 @@ def run() -> tuple:
             "launches_per_rollout_step": {
                 "flagship": counts["rollout"][i] / steps,
                 "ns": counts["ns"][i] / ns["steps"]},
-            "on_main_path": any(counts[p][i] for p in ("rollout", "epoch",
-                                                       "ns", "ns_epoch")),
+            "launches_per_no_mlp_iteration":
+                counts["no_mlp_block"][i] / nmp["iters"],
+            "on_main_path": any(counts[p][i] for p in (
+                "rollout", "epoch", "ns", "ns_epoch", "no_mlp_block")),
             "max_abs_err": max_abs,
             "timed": "ms (device), call_ms, plain_ms and bound_ms sum the "
                      "shapes of the *_by_shape fields",
@@ -1891,6 +2203,8 @@ def run() -> tuple:
                 step_profile[name]["device_ms_per_step"]
             row["device_ms_per_ns_pn_step"] = \
                 nst["profile"][name]["device_ms_per_step"]
+            row["device_ms_per_no_mlp_iteration"] = \
+                nmp["profile"][name]["device_ms_per_step"]
         if i >= 3:
             key = "fwd" if i == 3 else "bwd"
             row["pairs_by_shape"] = col("pairs")
@@ -1912,7 +2226,11 @@ def run() -> tuple:
                 nst["train_s"],
             "ns_ema_rollout_mean_rel_l2": nst["ema_mean_rel_l2"],
             "ns_epoch_first_mask_divergence": nst["first"],
-            "aggregate_pairs_differing": agg["differ"]}, card
+            "aggregate_pairs_differing": agg["differ"],
+            "no_mlp": {k: nmp[k] for k in (
+                "block_errs", "burgers_2d_rel_l2", "burgers_2d_s",
+                "burgers_2d_iters", "burgers_1d_rel_l2", "burgers_1d_s",
+                "wave_2d_s", "block_ms")}}, card
 
 
 def main() -> int:

@@ -6,7 +6,7 @@ the parity tests compare like with like.  The package imports ``torch`` and
 numpy only; the JAX package is the reference it is tested against.
 
 Layer map (the slices so far: PN training and rollout of the Burgers
-flagship, the Navier-Stokes rollout):
+flagship, Navier-Stokes training and rollout, the no-MLP direct solver):
 
   ops       mixture evaluation (CUDA kernels K1 forward, K2/K3 backward, and
             their plain twins), dense oracle, neighbour aggregation (plain
@@ -17,8 +17,10 @@ flagship, the Navier-Stokes rollout):
             step, sampling, losses, adaptive split, randomized ICs
   train     training (optax-style Adam, epochs, curriculum, EMA,
             checkpoints), rollout and its metrics, the NS dataset and the
-            vorticity rollout
-  convert   flax parameter trees and optax Adam states -> torch
+            vorticity rollout; the no-MLP direct solver
+  utils     samplers, FD and spectral reference solvers, the card's name
+  convert   flax parameter trees, no-MLP parameters and optax Adam
+            states -> torch
 """
 
 from pigs_tpu_torch.pde import IntegrationRule, Problem, pde_rhs

@@ -16,6 +16,9 @@ form ``scripts/export_torch_fixture.py`` writes.  The name map:
 optax's ``ScaleByAdamState`` keeps ``mu`` and ``nu`` as trees shaped like
 the params, so they go through the same map (kernels transposed); its
 ``count`` is the step count.
+
+The no-MLP solver's ``RawParams`` and their Adam state carry across field
+by field (``no_mlp_params_from_jax``, ``no_mlp_adam_from_optax``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 __all__ = ["flax_to_torch_name", "torch_to_flax_name", "params_from_flax",
            "params_to_flax", "adam_from_flax", "adam_to_flax", "load_fixture",
-           "load_train_fixture"]
+           "load_train_fixture", "no_mlp_params_from_jax",
+           "no_mlp_adam_from_optax", "no_mlp_arrays", "load_no_mlp_fixture"]
 
 _RAW = re.compile(r"^(distance_transform|transform)_(\d+)$")
 
@@ -196,6 +200,55 @@ def load_fixture(path: str, device=None):
         data["frequencies"]), device=device)
     network.load_state_dict(params_from_flax(flat))
     return cfg, network, data
+
+
+NO_MLP_FIELDS = ("raw_means", "values", "raw_scaling", "transforms")
+
+
+def no_mlp_params_from_jax(params: Sequence, device=None, dtype=None):
+    """The JAX package's no-MLP ``RawParams`` (or its four arrays in field
+    order, as numpy) -> the port's ``RawParams`` on ``device``, in ``dtype``
+    (default: the arrays' own)."""
+    from pigs_tpu_torch.train.no_mlp import RawParams
+    return RawParams(*(torch.tensor(np.asarray(x), dtype=dtype, device=device)
+                       for x in params))
+
+
+def no_mlp_adam_from_optax(mu: Sequence, nu: Sequence, count, device=None,
+                           dtype=None):
+    """optax's ``ScaleByAdamState`` of a no-MLP solve (``mu`` and ``nu``
+    RawParams of arrays, ``count``) -> an ``AdamState`` whose lists follow
+    the RawParams fields, so a solve resumes from a JAX state."""
+    from pigs_tpu_torch.train.optim import AdamState
+    return AdamState(
+        mu=list(no_mlp_params_from_jax(mu, device, dtype)),
+        nu=list(no_mlp_params_from_jax(nu, device, dtype)),
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                           device=device))
+
+
+def no_mlp_arrays(data: dict, prefix: str) -> list:
+    """The four RawParams arrays a fixture stores under ``prefix/<field>``
+    (``scripts/export_torch_fixture.py --kind no-mlp``)."""
+    return [data[f"{prefix}/{f}"] for f in NO_MLP_FIELDS]
+
+
+def load_no_mlp_fixture(path: str, dtype=torch.float32):
+    """Load the no-MLP fixture: ``(cfg, densify_every, data)``, the
+    ``NoMLPConfig`` of its recipe in ``dtype``, its densify cadence and its
+    arrays as numpy (see :func:`no_mlp_arrays`)."""
+    from pigs_tpu_torch.pde import Problem
+    from pigs_tpu_torch.train.no_mlp import NoMLPConfig
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    cfg = NoMLPConfig(
+        problem=Problem[str(data["config_problem"])], dtype=dtype,
+        **{f: data[f"config_{f}"].item() for f in (
+            "d", "scale", "n_init", "capacity", "n_samples", "dt", "nu", "lr",
+            "block_iters", "max_iters", "tol", "init_raw_scaling",
+            "warm_up_blocks", "min_keep", "active_sampling",
+            "sampling_inflate", "lr_min")})
+    return cfg, int(data["config_densify_every"]), data
 
 
 def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

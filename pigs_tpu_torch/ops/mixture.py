@@ -19,19 +19,26 @@ import torch
 from pigs_tpu_torch.ops.mixture_kernel import eval_mixture_fused
 from pigs_tpu_torch.ops.oracle import MixtureFields, eval_mixture_dense
 
-__all__ = ["eval_mixture", "eval_mixture_image"]
+__all__ = ["eval_mixture", "eval_mixture_image", "embed_d1"]
 
 
-def _eval_d1_via_d2(means, conics, values, samples, order, mask, period):
-    """d=1 on the d=2 path: a zero second coordinate and a conic whose second
-    row and column are zero, so the exponent and every derivative in the
-    leading index are exactly the 1D ones."""
+def embed_d1(means, conics, samples):
+    """A d=1 mixture's ``(means, conics, samples)`` on the d=2 path: a zero
+    second coordinate and a conic whose second row and column are zero, so
+    the exponent and every derivative in the leading index are exactly the
+    1D ones."""
     n, m = means.shape[0], samples.shape[0]
     means2 = torch.cat([means.reshape(n, 1), means.new_zeros((n, 1))], dim=-1)
     conics2 = conics.new_zeros((n, 2, 2))
     conics2[:, 0, 0] = conics.reshape(n)
     samples2 = torch.cat([samples.reshape(m, 1), samples.new_zeros((m, 1))],
                          dim=-1)
+    return means2, conics2, samples2
+
+
+def _eval_d1_via_d2(means, conics, values, samples, order, mask, period):
+    """d=1 on the d=2 path (:func:`embed_d1`)."""
+    means2, conics2, samples2 = embed_d1(means, conics, samples)
     out = eval_mixture_fused(means2, conics2, values, samples2, order=order,
                              mask=mask, period=period)
     return MixtureFields(

@@ -75,6 +75,45 @@ and runs the JAX package in float64 on the CPU from there.  It writes the
   epoch_per_step        the split-regime epoch with the vorticity criteria,
                         totals with the reconstruction term
 
+``--kind no-mlp`` runs the no-MLP direct solver (``pigs_tpu.train.no_mlp``)
+on the CPU at the full width of the committed 2-D Burgers recipe
+(results_no_mlp_2d_burgers/summary.json's args: capacity 1024, n_init 20,
+1024 samples, dt 0.1, lr 1e-2 -> lr_min 1e-4 over max_iters 5000,
+init_raw_scaling -5, densify every 3 blocks after 300): the IC fit and one
+dynamics block in float32, as ``solve`` runs them from PRNGKey(seed); then
+the next block of that timestep, in float32 draws and float64 arithmetic.
+It writes (``<prefix>/<field>`` holds a RawParams field: raw_means,
+values, raw_scaling, transforms):
+
+  config_*              the recipe (problem, d, scale, n_init, capacity,
+                        n_samples, dt, nu, lr, lr_min, block_iters,
+                        max_iters, tol, init_raw_scaling, warm_up_blocks,
+                        min_keep, active_sampling, sampling_inflate,
+                        densify_every, seed)
+  ic/..., ic_active     the parameters after the IC fit (the previous
+                        mixture of the block), float32
+  start/..., start_active, start_adam_mu/..., start_adam_nu/...,
+  start_adam_count      the parameters and optax Adam state after the IC
+                        fit and one dynamics block, float32
+  draws_base, draws_time  (block_iters, n_samples, 2) and (block_iters,
+                        n_samples): the next block's uniform draws, split
+                        from its key exactly as _run_block and draw_samples
+                        split it (jax_block_draws), float32
+  block_loss, block/..., block_grad_acc/..., block_adam_mu/...,
+  block_adam_nu/..., block_adam_count
+                        that block run in float64 on those draws: its mean
+                        loss, parameters, summed gradients and Adam state
+  densify_in/..., densify_in_active, densify_mean_grad
+                        a densify input at full width: the start state (its
+                        Adam state start_adam_*) with every 40th active
+                        value scaled by 1e-3 (pruning fires), and dynamics
+                        block 0's mean raw_means gradient with every 50th
+                        kept slot's scaled by 20 (splitting fires)
+  densify0_*, densifyk_*  densify's output (params, active, adam mu/nu) with
+                        min_keep 0 and with min_keep = densify_min_keep
+                        (five above the count the criterion keeps, so its
+                        fallback fires)
+
 The port (pigs_tpu_torch) loads these files on a machine without JAX.
 
 Examples:
@@ -85,6 +124,7 @@ Examples:
       --out artifacts/burgers_ns4096_ema2_train_torch.npz
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns-train
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind no-mlp
 """
 
 import argparse
@@ -547,10 +587,203 @@ def _export_ns(ckpt: str, data_path: str, out: str):
     print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 
+NO_MLP_SUMMARY = "results_no_mlp_2d_burgers/summary.json"
+NO_MLP_FIELDS = ("raw_means", "values", "raw_scaling", "transforms")
+
+
+def no_mlp_recipe(summary: str = NO_MLP_SUMMARY):
+    """(NoMLPConfig in float32, densify_every, seed) of the committed 2-D
+    run's args, as scripts/validate_no_mlp_2d.py builds them."""
+    import json
+
+    from pigs_tpu.pde import Problem
+    from pigs_tpu.train.no_mlp import NoMLPConfig
+    with open(summary) as f:
+        a = json.load(f)["args"]
+    cfg = NoMLPConfig(problem=Problem[a["problem"].upper()], d=2,
+                      scale=a["scale"], n_init=a["n_init"],
+                      capacity=a["capacity"], n_samples=a["n_samples"],
+                      dt=a["dt"], max_iters=a["max_iters"],
+                      min_keep=a["min_keep"],
+                      warm_up_blocks=a["warm_up_blocks"],
+                      init_raw_scaling=a["init_raw_scaling"],
+                      lr_min=a["lr_min"],
+                      active_sampling=a["active_sampling"])
+    return cfg, a["densify_every"], a["seed"]
+
+
+def jax_block_draws(cfg, key, active, first_step: bool):
+    """The random numbers ``pigs_tpu.train.no_mlp._run_block`` draws from
+    ``key``, split as it splits them (one key per iteration, each split in
+    two, the first split in three by ``draw_samples``), as numpy in the
+    layout of ``pigs_tpu_torch.train.no_mlp.BlockDraws``: base, idx, z
+    (None without active sampling) and time."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from pigs_tpu.pde import Problem
+    n, d = cfg.n_samples, cfg.d
+    n_act = int(round(n * cfg.active_sampling))
+    wave_ic = first_step and cfg.problem == Problem.WAVE and d == 2
+    base, idx, z, time = [], [], [], []
+    for k in jax.random.split(key, cfg.block_iters):
+        k1, k2 = jax.random.split(k)
+        k_u, k_idx, k_z = jax.random.split(k1, 3)
+        if wave_ic:
+            base.append(jax.random.normal(k_u, (n, d), cfg.dtype))
+        else:
+            base.append(jax.random.uniform(k_u, (n, d), cfg.dtype))
+            if n_act:
+                logits = jnp.where(active, 0.0, -jnp.inf)
+                idx.append(jax.random.categorical(k_idx, logits,
+                                                  shape=(n_act,)))
+                z.append(jax.random.normal(k_z, (n_act, d), cfg.dtype))
+        time.append(jax.random.uniform(k2, (n,), cfg.dtype))
+    stack = lambda xs: np.stack([np.asarray(x) for x in xs]) if xs else None
+    return stack(base), stack(idx), stack(z), stack(time)
+
+
+def float32_draws():
+    """Patch ``jax.random.uniform`` and ``normal`` to draw float32 numbers
+    and cast them to the dtype asked for: a float64 run then sees the
+    float32 run's draws."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import jax
+    import jax.numpy as jnp
+    stack = ExitStack()
+    for name in ("uniform", "normal"):
+        fn = getattr(jax.random, name)
+
+        def f32(key, shape=(), dtype=jnp.float32, *args, _fn=fn, **kw):
+            return _fn(key, shape, jnp.float32, *args, **kw).astype(dtype)
+        stack.enter_context(mock.patch.object(jax.random, name, f32))
+    return stack
+
+
+def no_mlp_flat(prefix: str, tree) -> dict:
+    """A RawParams of arrays -> {prefix/field: numpy array}."""
+    import numpy as np
+    return {f"{prefix}/{f}": np.asarray(x) for f, x in zip(NO_MLP_FIELDS, tree)}
+
+
+def export_no_mlp(out: str):
+    """Write the no-MLP fixture (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+
+    from pigs_tpu.train.no_mlp import (_make_opt, _run_block, concrete,
+                                       densify, init_params, solve_timestep)
+    cfg, densify_every, seed = no_mlp_recipe()
+
+    # As solve() runs timestep 0 (the IC fit) and the first block of
+    # timestep 1, in float32.
+    key = jax.random.PRNGKey(seed)
+    params, active = init_params(cfg)
+    key, sub = jax.random.split(key)
+    ic, active, ic_loss = solve_timestep(cfg, params, active, None, sub,
+                                         first_step=True)
+    print(f"IC fit: loss {ic_loss:.3e}, {int(active.sum())} active",
+          flush=True)
+    means, conics, values = concrete(cfg, ic)
+    prev = tuple(jax.lax.stop_gradient(x) for x in (means, conics, values)) \
+        + (active,)
+    key, step_key = jax.random.split(key)
+    step_key, b0 = jax.random.split(step_key)
+    opt_state = _make_opt(cfg).init(ic)
+    start, opt_state, grad0, loss0 = _run_block(cfg, ic, opt_state, active,
+                                                prev, b0, False)
+    print(f"dynamics block 0: mean loss {float(loss0):.3e}", flush=True)
+    adam = opt_state[0]
+
+    # The next block: float32 draws, float64 arithmetic.
+    step_key, b1 = jax.random.split(step_key)
+    base, _, _, time = jax_block_draws(cfg, b1, active, False)
+    f64 = jnp.float64
+    up = lambda tree: jax.tree_util.tree_map(
+        lambda x: x.astype(f64) if jnp.issubdtype(x.dtype, jnp.floating)
+        else x, tree)
+    with float32_draws():
+        p64, s64, g64, l64 = _run_block(cfg._replace(dtype=f64), up(start),
+                                        up(opt_state), active, up(prev), b1,
+                                        False)
+    print(f"dynamics block 1 (float64): mean loss {float(l64):.6e}",
+          flush=True)
+
+    # densify at full width: prune every 40th active slot's value.
+    act = np.asarray(active)
+    vals = np.array(start.values)
+    vals[np.nonzero(act)[0][::40]] *= 1e-3
+    d_in = start._replace(values=jnp.asarray(vals))
+    keep = ((np.linalg.norm(vals, axis=-1) > 0.01)
+            & (np.exp(np.asarray(d_in.raw_scaling)).sum(-1) < 0.5) & act)
+    # The largest gradients sit on slots the criterion prunes; scale up every
+    # 50th kept slot's so that splitting fires too.
+    mean_grad = np.array(grad0.raw_means / cfg.block_iters)
+    mean_grad[np.nonzero(keep)[0][::50]] *= 20.0
+    mean_grad = jnp.asarray(mean_grad)
+    min_keep = int(keep.sum()) + 5
+    outs = {}
+    for tag, mk in (("densify0", 0), ("densifyk", min_keep)):
+        dp, ds, da = densify(cfg._replace(min_keep=mk), d_in, opt_state,
+                             active, mean_grad)
+        da = np.asarray(da)
+        # Children land in free slots, pruned ones first: count the slots
+        # whose mean was written.
+        children = int((np.asarray(dp.raw_means)
+                        != np.asarray(d_in.raw_means)).any(-1).sum())
+        print(f"densify min_keep {mk}: {int((act & ~keep).sum())} fail the "
+              f"criterion, {children} children, {int(da.sum())} active",
+              flush=True)
+        if tag == "densify0" and not ((act & ~keep).any() and children):
+            raise ValueError("densify input does not both prune and split")
+        dadam = [s for s in ds if isinstance(s, optax.ScaleByAdamState)][0]
+        outs.update(no_mlp_flat(tag, dp))
+        outs.update(no_mlp_flat(f"{tag}_adam_mu", dadam.mu))
+        outs.update(no_mlp_flat(f"{tag}_adam_nu", dadam.nu))
+        outs[f"{tag}_active"] = da
+
+    adam64 = s64[0]
+    np.savez_compressed(
+        out,
+        config_problem=np.asarray(cfg.problem.name), config_d=cfg.d,
+        config_scale=cfg.scale, config_n_init=cfg.n_init,
+        config_capacity=cfg.capacity, config_n_samples=cfg.n_samples,
+        config_dt=cfg.dt, config_nu=cfg.nu, config_lr=cfg.lr,
+        config_lr_min=cfg.lr_min, config_block_iters=cfg.block_iters,
+        config_max_iters=cfg.max_iters, config_tol=cfg.tol,
+        config_init_raw_scaling=cfg.init_raw_scaling,
+        config_warm_up_blocks=cfg.warm_up_blocks,
+        config_min_keep=cfg.min_keep,
+        config_active_sampling=cfg.active_sampling,
+        config_sampling_inflate=cfg.sampling_inflate,
+        config_densify_every=densify_every, config_seed=seed,
+        **no_mlp_flat("ic", ic), ic_active=act,
+        **no_mlp_flat("start", start), start_active=act,
+        **no_mlp_flat("start_adam_mu", adam.mu),
+        **no_mlp_flat("start_adam_nu", adam.nu),
+        start_adam_count=np.asarray(adam.count),
+        draws_base=base, draws_time=time,
+        block_loss=np.asarray(l64), **no_mlp_flat("block", p64),
+        **no_mlp_flat("block_grad_acc", g64),
+        **no_mlp_flat("block_adam_mu", adam64.mu),
+        **no_mlp_flat("block_adam_nu", adam64.nu),
+        block_adam_count=np.asarray(adam64.count),
+        **no_mlp_flat("densify_in", d_in), densify_in_active=act,
+        densify_mean_grad=np.asarray(mean_grad),
+        densify_min_keep=min_keep, **outs)
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--kind", choices=["rollout", "train", "ns", "ns-train"],
+    p.add_argument("--kind", choices=["rollout", "train", "ns", "ns-train",
+                                      "no-mlp"],
                    default="rollout")
     p.add_argument("--ckpt", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_ckpt_30000 "
@@ -560,9 +793,15 @@ def main():
     p.add_argument("--out", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_torch.npz "
                         "(rollout), ..._train_torch.npz (train), "
-                        "artifacts/ns_vorttrain_torch.npz (ns) or "
-                        "artifacts/ns_vorttrain_train_torch.npz (ns-train)")
+                        "artifacts/ns_vorttrain_torch.npz (ns), "
+                        "artifacts/ns_vorttrain_train_torch.npz (ns-train) "
+                        "or artifacts/no_mlp_torch.npz (no-mlp)")
     args = p.parse_args()
+    if args.kind == "no-mlp":
+        import jax
+        jax.config.update("jax_enable_x64", True)
+        export_no_mlp(args.out or "artifacts/no_mlp_torch.npz")
+        return
     if args.kind == "ns":
         export_ns(args.ckpt or "artifacts/ns_vorttrain_ckpt_20000",
                   args.ns_data, args.out or "artifacts/ns_vorttrain_torch.npz")

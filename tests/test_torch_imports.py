@@ -13,7 +13,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "pigs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "rollout_torch.py",
     ROOT / "scripts" / "train_torch.py",
-    ROOT / "scripts" / "validate_ns_torch.py"]
+    ROOT / "scripts" / "validate_ns_torch.py",
+    ROOT / "scripts" / "solve_no_mlp_torch.py",
+    ROOT / "scripts" / "validate_no_mlp_2d_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pigs_tpu")
 
 
@@ -39,7 +41,8 @@ def test_scan_sees_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"mixture_kernel.py", "aggregate_kernel.py", "model.py", "pn.py",
             "convert.py", "optim.py", "checkpoint.py", "train_torch.py",
-            "validate_ns_torch.py"} <= names
+            "validate_ns_torch.py", "fd.py", "no_mlp.py", "card.py",
+            "solve_no_mlp_torch.py", "validate_no_mlp_2d_torch.py"} <= names
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):
