@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero:
                with nvcc for sm_90a, all four sources at once: K1 (mixture
                forward), K2/K3 (its backward, Gaussian and sample side), K4
                (fused neighbour aggregation) and K5 (its backward); each
-               instantiation's registers and spills from ptxas (a K1 or K2
-               instantiation that spills fails);
+               instantiation's registers and spills from ptxas (a K1, K2,
+               K3 or K4 instantiation that spills fails, combine and merge
+               passes included);
   2. kernel    K1 against its plain PyTorch twin and the plain path in
                float32 (norm-relative error <= 1e-5 per field) and against
                the plain path in float64 (<= 1e-4), at the two shapes of the
@@ -25,10 +26,12 @@ Phases, in order; any failure exits non-zero:
                against torch autograd through the float64 dense oracle
                (<= 1e-4, conic gradients symmetrized), at the two training
                shapes (collocation and boundary samples of the training
-               fixture), the ragged cases, the same at 20 samples (K2 in one
-               slice) and d=1; the launch counters rise, and K3 stays idle
-               when the samples need no gradient; K2 bitwise equal over two
-               launches on the ragged and one-slice inputs;
+               fixture; K3 in 26 Gaussian slices), the ragged cases, the
+               same at 20 samples (K2 in one slice) and over 5 Gaussians
+               (K3 in one slice), and d=1; the launch counters rise, and K3
+               stays idle when the samples need no gradient; K2 and K3
+               bitwise equal over two launches on the ragged and one-slice
+               inputs;
   4. rollout   the 50-step rollout of the Burgers flagship at capacity 1664
                from artifacts/burgers_ns4096_ema2_torch.npz: exactly 2 K1
                launches per step, finite frames, frames against the JAX
@@ -58,7 +61,7 @@ Phases, in order; any failure exits non-zero:
                (median of 20 event-timed single calls of the public
                wrapper: the caller's price, host work included), the plain
                twin's call time, the bound (FLOP, SFU results or bytes at
-               the H100's peaks) and K1/K2's grid, and K1/K2's graph
+               the H100's peaks) and K1-K3's grid, and K1-K3's graph
                replay with the grid aimed at 2, 4, 6 and 8 blocks per SM
                (6 is the one the paths run); pn_step and the epoch
                through the kernels and through the plain path; a profile
@@ -82,13 +85,17 @@ Phases, in order; any failure exits non-zero:
                (<= 1e-4 each), K4 against the factored aggregation the
                network runs (its error and the number of pairs the two
                neighbour rules decide differently; above 1e-4 a failure
-               only when no pair differs); exact K4/K5 launch counts.  Then
-               forward and forward+backward call times of K4/K5, the
-               factored path and the plain twin at the real inputs (head 0)
-               and at benchmarks/perf_suite.py's synthetic inputs, n in
-               {512, 1664, 4096, 8192}; K4 and K5 at the real inputs timed
-               as in 8, the bound counting the neighbour pairs of each
-               input;
+               only when no pair differs); exact K4/K5 launch counts; K4
+               bitwise equal over two launches at each real input (its key
+               axis in 2 or 5 slices).  Then forward and forward+backward
+               call times of K4/K5, the factored path and the plain twin at
+               the real inputs (head 0) and at benchmarks/perf_suite.py's
+               synthetic inputs, n in {512, 1664, 4096, 8192}, where K4 in
+               one slice (n >= 4096) is also checked against its twins and
+               for equal bits; K4 and K5 at the real inputs timed as in 8,
+               the bound counting the neighbour pairs of each input, K4
+               with its grid, its graph replay aimed at 2-8 blocks per SM
+               and the factored aggregation's device time beside it;
  11. ns-train  Navier-Stokes training from artifacts/ns_vorttrain_train_
                torch.npz (the NS checkpoint's training state, one epoch's
                inputs with the reconstruction targets, and the JAX float64
@@ -185,7 +192,7 @@ NO_MLP_1D_STEP_TOL = 0.02   # 1-D steps 1-3 vs FD (JAX: 0.0023-0.0053)
 
 DEVICE_RUNS = 20         # launches in one profiled window (device_ms)
 GRAPH_LAUNCHES = 100     # raw launches captured in one CUDA graph (graph_ms)
-SWEEP_BLOCKS_PER_SM = (2, 4, 6, 8)  # K1/K2 grid targets timed against each other
+SWEEP_BLOCKS_PER_SM = (2, 4, 6, 8)  # K1-K4 grid targets timed against each other
 # An H100 SXM's peaks per millisecond (NVIDIA's data sheet, at 700 W):
 # float32 outside the tensor cores, special-function results (exp, sin,
 # cos: 132 SMs x 16 a clock x 1.98 GHz) and HBM3 bytes.
@@ -605,10 +612,13 @@ def time_kernel(launch, call, plain) -> dict:
 
 
 def check_deterministic(label: str, launch):
-    """Two launches on the same inputs give the same bits."""
+    """Two launches on the same inputs give the same bits; ``launch``
+    returns a tensor or a tuple of them."""
     import torch
     first, second = launch(), launch()
     torch.cuda.synchronize()
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
     check(all(torch.equal(a, b) for a, b in zip(first, second)),
           f"{label}: two launches on the same inputs differ")
 
@@ -658,17 +668,17 @@ def time_k1(label, mu, con, val, smp, order, mask, period, mk, card) -> dict:
                         mk.FWD_SLICE_UNIT)
     print(describe_kernel_times("mixture_fwd", label, t, card), flush=True)
     t["graph_ms_by_blocks_per_sm"] = sweep_grid(
-        "mixture_fwd", label, mk, lambda b: mk.fwd_geometry(m, n,
-                                                            mk._sm_count(0), b),
+        "mixture_fwd", label,
+        lambda b: mk.fwd_geometry(m, n, mk._sm_count(0), b),
         lambda b: mk._launch_fwd(*args, blocks_per_sm=b), card)
     return t
 
 
-def sweep_grid(name, label, mk, geometry, launch, card) -> dict:
-    """K1 or K2 at one input with the slicing aimed at each of
-    SWEEP_BLOCKS_PER_SM blocks per SM (``mixture_kernel.BLOCKS_PER_SM`` is
-    the one the paths run): the graph-replayed device time per launch by
-    target."""
+def sweep_grid(name, label, geometry, launch, card) -> dict:
+    """A sliced kernel (K1-K4) at one input with the slicing aimed at each
+    of SWEEP_BLOCKS_PER_SM blocks per SM (``mixture_kernel.BLOCKS_PER_SM``
+    is the one the paths and wrappers run): the graph-replayed device time
+    per launch by target."""
     times = {b: graph_device_ms(lambda: launch(b))
              for b in SWEEP_BLOCKS_PER_SM}
     print(f"[grid] {name} {label}: " + "; ".join(
@@ -678,13 +688,13 @@ def sweep_grid(name, label, mk, geometry, launch, card) -> dict:
     return times
 
 
-def grid_of(mk, geometry, unit: int) -> dict:
-    """A K1 or K2 geometry ``(tiles, slices, slice_len)`` as the kernels
+def grid_of(mod, geometry, unit: int) -> dict:
+    """A K1-K4 geometry ``(tiles, slices, slice_len)`` as the kernels
     line reports it; fails unless it puts 2 blocks on every SM or, where the
     summed axis is too short for that, cuts it into slices of the slicing
     ``unit`` (the most the geometry helpers' contract allows)."""
     tiles, slices, slice_len = geometry
-    sms = mk._sm_count(0)
+    sms = mod._sm_count(0)
     check(tiles * slices >= 2 * sms or slice_len == unit,
           f"grid of {tiles} x {slices} slices of {slice_len} is under 2 "
           f"blocks per SM ({sms} SMs) with the axis still above the unit "
@@ -695,34 +705,33 @@ def grid_of(mk, geometry, unit: int) -> dict:
 
 def time_k23(label, packed, smp, order, mk, gen, card, period=None,
              with_k3=True) -> dict:
-    """K2 (and K3 unless ``with_k3`` is False) at one training input: K2
-    bitwise deterministic over two raw launches, then the kernels' times
-    and bounds, and K2's time against the grid's target."""
+    """K2 (and K3 unless ``with_k3`` is False) at one training input: each
+    bitwise deterministic over two raw launches, then the kernels' times,
+    bounds and grids, and each one's time against the grid's target."""
     import torch
     m, n, c = smp.shape[0], packed[0].shape[0], packed[2].shape[1]
     cots = [torch.randn((m, gs * c), generator=gen).to(smp.device)
             for gs in (1, 2, 3, 4)[:order + 1]]
     a = (*packed, smp.contiguous(), cots, order, period)
-    check_deterministic(f"K2 {label}", lambda: mk._launch_bwd_gauss(*a))
     out = {}
     kernels = (("mixture_bwd_gauss", mk._launch_bwd_gauss,
-                mk.mixture_backward_gauss, mk.mixture_backward_gauss_plain),
+                mk.mixture_backward_gauss, mk.mixture_backward_gauss_plain,
+                mk.gauss_geometry, mk.BWD_SLICE_UNIT),
                ("mixture_bwd_sample", mk._launch_bwd_sample,
-                mk.mixture_backward_sample, mk.mixture_backward_sample_plain))
-    for name, launch, call, plain in kernels[:2 if with_k3 else 1]:
+                mk.mixture_backward_sample, mk.mixture_backward_sample_plain,
+                mk.fwd_geometry, mk.FWD_SLICE_UNIT))
+    for name, launch, call, plain, geometry, unit in \
+            kernels[:2 if with_k3 else 1]:
+        check_deterministic(f"{name} {label}", lambda: launch(*a))
         t = time_kernel(lambda: launch(*a), lambda: call(*a),
                         lambda: plain(*a))
         t["bound_ms"], t["bound_by"] = mixture_bound(name, m, n, order, c,
                                                      period is not None)
-        if name == "mixture_bwd_gauss":
-            t["grid"] = grid_of(mk, mk.gauss_geometry(m, n, mk._sm_count(0)),
-                                mk.BWD_SLICE_UNIT)
+        t["grid"] = grid_of(mk, geometry(m, n, mk._sm_count(0)), unit)
         print(describe_kernel_times(name, label, t, card), flush=True)
-        if name == "mixture_bwd_gauss":
-            t["graph_ms_by_blocks_per_sm"] = sweep_grid(
-                name, label, mk,
-                lambda b: mk.gauss_geometry(m, n, mk._sm_count(0), b),
-                lambda b: mk._launch_bwd_gauss(*a, blocks_per_sm=b), card)
+        t["graph_ms_by_blocks_per_sm"] = sweep_grid(
+            name, label, lambda b: geometry(m, n, mk._sm_count(0), b),
+            lambda b: launch(*a, blocks_per_sm=b), card)
         out[name] = t
     return out
 
@@ -1405,9 +1414,13 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
             check(e <= KERNEL_F64_TOL,
                   f"{label}: K5 grad {n} vs float64 {e:.3e} > "
                   f"{KERNEL_F64_TOL}")
+    # Two raw K4 launches on each real input give the same bits.
+    for label, period, _, x32, _ in prepared:
+        check_deterministic(f"K4 {label}",
+                            lambda: ak._launch_fwd(*x32, 3.0, period))
     print(f"[aggregate] {len(prepared)} cases pass; max abs err vs the f32 "
-          f"twins: K4 {max_abs['fwd']:.3e}, K5 {max_abs['bwd']:.3e}",
-          flush=True)
+          f"twins: K4 {max_abs['fwd']:.3e}, K5 {max_abs['bwd']:.3e}; K4 "
+          "bitwise equal over two launches", flush=True)
 
     # Times at the real inputs (head 0 of each case) and at perf_suite's
     # inputs.  The float32 twin's forward+backward at n=8192 keeps every
@@ -1424,17 +1437,30 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
               + describe_times(real) + f" (median of 20; {card})",
               flush=True)
         pairs = int(ak.kernel_mask(means, radii, 3.0, period).sum())
-        for name, t in time_k45(ak, x32, cot, period).items():
+        for name, t in time_k45(ak, x32, cot, nbr, period).items():
             t["bound_ms"], t["bound_by"] = aggregate_bound(name, f.shape[0],
                                                            pairs)
             t["pairs"] = pairs
-            print(describe_kernel_times(name, f"{label} ({pairs} neighbour "
-                                        "pairs)", t, card), flush=True)
+            text = f"{label} ({pairs} neighbour pairs)"
+            print(describe_kernel_times(name, text, t, card), flush=True)
+            if name == "aggregate_fwd":
+                print(f"[times] factored aggregation {text}: device "
+                      f"{t['factored_device_ms']:.4f} ms in "
+                      f"{sum(t['factored_kernels'].values())} kernels a call "
+                      f"(profiler), K4 {t['device_ms']:.4f} ms ({card})",
+                      flush=True)
+                t["graph_ms_by_blocks_per_sm"] = sweep_grid(
+                    name, label,
+                    lambda b: ak.fwd_geometry(f.shape[0], ak._sm_count(0), b),
+                    lambda b: ak._launch_fwd(*x32, 3.0, period,
+                                             blocks_per_sm=b), card)
             kernel_times[name][label] = t
     for n in PERF_SUITE_SIZES:
         inputs, means, cov = perf_suite_inputs(n, gen, dev)
         active = torch.ones(n, dtype=torch.bool, device=dev)
         mask = neighbor_mask(means, cov, active)
+        if ak.fwd_geometry(n, ak._sm_count(0))[1] == 1:
+            one_slice_k4(ak, n, inputs, means, ak.radii_of(cov, active))
         synth = time_aggregation(ak, *inputs, means, ak.radii_of(cov, active),
                                  mask, None)
         times.update({(impl, key, n): t for (impl, key), t in synth.items()})
@@ -1446,11 +1472,36 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
             "times": times, "kernel_times": kernel_times}
 
 
-def time_k45(ak, x32, cot, period) -> dict:
-    """K4 and K5 at one real input: device, graph-replay, call and plain
-    times.  K5's call is one autograd backward through the fused Function;
-    its plain twin recomputes the forward, as K5 does."""
+def one_slice_k4(ak, n, inputs, means, radii):
+    """K4 where its grid takes one slice (the warps write the output, no
+    merge pass): against its float32 and float64 twins, and two launches
+    bitwise equal."""
     import torch
+    x32 = [x.contiguous() for x in (*inputs, means, radii)]
+    with torch.no_grad():
+        out = ak._launch_fwd(*x32, 3.0, None)
+        e32 = rel_err(out, ak.aggregate_fused_plain(*x32))
+        e64 = rel_err(out, ak.aggregate_fused_plain(*(x.double()
+                                                      for x in x32)))
+    check(bool(torch.isfinite(out).all()), f"K4 n={n}: not finite")
+    check(e32 <= KERNEL_F32_TOL,
+          f"K4 n={n} (one slice): vs float32 twin {e32:.3e}")
+    check(e64 <= KERNEL_F64_TOL,
+          f"K4 n={n} (one slice): vs float64 twin {e64:.3e}")
+    check_deterministic(f"K4 n={n}", lambda: ak._launch_fwd(*x32, 3.0, None))
+    print(f"  K4 n={n} (one slice, perf_suite's input): rel err vs twin f32 "
+          f"{e32:.3e}, f64 {e64:.3e}; two launches equal", flush=True)
+
+
+def time_k45(ak, x32, cot, nbr, period) -> dict:
+    """K4 and K5 at one real input: device, graph-replay, call and plain
+    times, K4's grid, and the device time of the factored aggregation the
+    network runs (mask ``nbr``) beside K4.  K5's call is one autograd
+    backward through the fused Function; its plain twin recomputes the
+    forward, as K5 does."""
+    import torch
+
+    from pigs_tpu_torch.ops.aggregate import aggregate_neighbors_factored
     tin = [x.clone().requires_grad_() for x in x32[:7]]
     out = ak.aggregate_neighbors_fused(*tin, x32[7], period=period)
     with torch.no_grad():
@@ -1458,6 +1509,16 @@ def time_k45(ak, x32, cot, period) -> dict:
             lambda: ak._launch_fwd(*x32, 3.0, period),
             lambda: ak.aggregate_neighbors_fused(*x32, period=period),
             lambda: ak.aggregate_fused_plain(*x32, period=period))
+        fwd["grid"] = grid_of(ak, ak.fwd_geometry(x32[0].shape[0],
+                                                  ak._sm_count(0)),
+                              ak.KEY_SLICE_UNIT)
+        factored, kernels = profiled_device_ms(
+            lambda: aggregate_neighbors_factored(*x32[:7], mask=nbr,
+                                                 period=period))
+        check(factored is not None,
+              "the profiler saw no kernel of the factored aggregation")
+        fwd["factored_device_ms"] = factored
+        fwd["factored_kernels"] = {k: c for k, (c, _) in kernels.items()}
         bwd = time_kernel(
             lambda: ak._launch_bwd(*x32, cot, 3.0, period),
             lambda: torch.autograd.grad(out, tin, cot, retain_graph=True),
@@ -1814,18 +1875,24 @@ def run() -> tuple:
             print(f"  ptxas: {kernel}: {r['registers']} registers, "
                   f"{r['spill_stores']} + {r['spill_loads']} bytes spilled",
                   flush=True)
-    # Every K1 and K2 instantiation, compiled now or cached, spills nothing.
+    # Every K1-K4 instantiation, compiled now or cached, spills nothing.
     ptxas = {lib: ptxas_report(infos[lib].log)
-             for lib in ("mixture_fwd", "mixture_bwd")}
-    for lib, kernel in (("mixture_fwd", "mixture_fwd_kernel<"),
-                        ("mixture_bwd", "bwd_gauss_partial_kernel<")):
+             for lib in ("mixture_fwd", "mixture_bwd", "aggregate_fwd")}
+    for lib, kernel, count in (
+            ("mixture_fwd", "mixture_fwd_kernel<", 8),
+            ("mixture_fwd", "combine_slices_kernel<FwdStore", 2),
+            ("mixture_bwd", "bwd_gauss_partial_kernel<", 8),
+            ("mixture_bwd", "combine_slices_kernel<GaussStore", 1),
+            ("mixture_bwd", "bwd_sample_kernel<", 8),
+            ("mixture_bwd", "combine_slices_kernel<SampleStore", 1),
+            ("aggregate_fwd", "aggregate_fwd_kernel", 1),
+            ("aggregate_fwd", "aggregate_merge_kernel", 1)):
         found = sum(k.startswith(kernel) for k in ptxas[lib])
-        check(found == 8, f"{lib}: ptxas reported {found} of the 8 "
-              f"{kernel}ORDER, C> instantiations")
+        check(found == count, f"{lib}: ptxas reported {found} of the "
+              f"{count} {kernel}... instantiations")
     spilled = [k for r in ptxas.values() for k, v in r.items()
-               if "bwd_sample" not in k
-               and v["spill_stores"] + v["spill_loads"] > 0]
-    check(not spilled, f"K1/K2 instantiations spill: {spilled}")
+               if v["spill_stores"] + v["spill_loads"] > 0]
+    check(not spilled, f"K1-K4 instantiations spill: {spilled}")
 
     # 2. K1 vs plain
     cfg, network, data = load_fixture(FIXTURE, device=dev)
@@ -1889,6 +1956,10 @@ def run() -> tuple:
         "4096x1664 order 0 (boundary)": (ti.bc_samples, 0),
     }
     berrs = []
+    # At the training shapes K3 cuts the Gaussians into slices (the combine
+    # pass runs); the one-slice branch runs at 1000x5 below.
+    check(mk.fwd_geometry(4096, 1664, mk._sm_count(0))[1] > 1,
+          "K3 at 4096x1664 takes one slice")
     for label, (smp, order) in train_shapes.items():
         berrs.append(compare_backward(label, st.means, conics_t, st.u, smp,
                                       order, st.interior, None, mk, gen))
@@ -1915,6 +1986,9 @@ def run() -> tuple:
         check_deterministic(f"K2 ragged 1000x333 c=2 order {order}",
                             lambda: mk._launch_bwd_gauss(*k2_in, k2_cots,
                                                          order, 2.0))
+        check_deterministic(f"K3 ragged 1000x333 c=2 order {order}",
+                            lambda: mk._launch_bwd_sample(*k2_in, k2_cots,
+                                                          order, 2.0))
     # Twenty samples make one slice: the main pass writes the gradients
     # itself, with no combine pass.
     check(mk.gauss_geometry(20, 333, mk._sm_count(0))[1] == 1,
@@ -1934,6 +2008,24 @@ def run() -> tuple:
                     f"K2 {label}",
                     lambda: mk._launch_bwd_gauss(*k2_in, k2_cots, order,
                                                  period))
+    # Five Gaussians make one slice for K3: the main pass writes gx itself.
+    check(mk.fwd_geometry(1000, 5, mk._sm_count(0))[1] == 1,
+          "K3 at 1000x5 takes more than one slice")
+    for c in (1, 2):
+        (mu, con, val, smp), mask = random_mixture(one, 5, 1000, c, 2, dev)
+        k3_in = (mu, mk.pack_conics(con).contiguous(),
+                 (val * mask.to(val.dtype)[:, None]).contiguous(), smp)
+        for period in (None, 2.0):
+            for order in range(4):
+                label = f"one slice 1000x5 c={c} order {order} period {period}"
+                berrs.append(compare_backward(label, mu, con, val, smp, order,
+                                              mask, period, mk, one))
+                k3_cots = [torch.randn((1000, c * gs), generator=one).to(dev)
+                           for gs in (1, 2, 3, 4)[:order + 1]]
+                check_deterministic(
+                    f"K3 {label}",
+                    lambda: mk._launch_bwd_sample(*k3_in, k3_cots, order,
+                                                  period))
     (mu, con, val, smp), mask = random_mixture(gen, 333, 1000, 1, 1, dev)
     for order in range(4):
         berrs.append(compare_backward(f"d=1 1000x333 order {order}", mu, con,
@@ -2194,10 +2286,13 @@ def run() -> tuple:
             row["grid_by_shape"] = col("grid")
             row["graph_ms_by_blocks_per_sm_by_shape"] = col(
                 "graph_ms_by_blocks_per_sm")
-        if i < 3:
-            lib = "mixture_fwd" if i == 0 else "mixture_bwd"
+        if i < 4:
+            lib = ("mixture_fwd", "mixture_bwd", "mixture_bwd",
+                   "aggregate_fwd")[i]
             row["ptxas"] = {k: v for k, v in ptxas[lib].items()
-                            if (i == 2) == k.startswith("bwd_sample")}
+                            if i not in (1, 2) or (i == 2) == (
+                                k.startswith("bwd_sample")
+                                or "SampleStore" in k)}
         if name in step_profile:
             row["device_ms_per_pn_step"] = \
                 step_profile[name]["device_ms_per_step"]
@@ -2205,6 +2300,12 @@ def run() -> tuple:
                 nst["profile"][name]["device_ms_per_step"]
             row["device_ms_per_no_mlp_iteration"] = \
                 nmp["profile"][name]["device_ms_per_step"]
+        if i == 3:
+            row["factored_device_ms_by_shape"] = col("factored_device_ms")
+            row["factored_note"] = (
+                "the device time of the factored aggregation the network "
+                "runs, at the same inputs: several torch calls, not one "
+                "library call, so not library_ms")
         if i >= 3:
             key = "fwd" if i == 3 else "bwd"
             row["pairs_by_shape"] = col("pairs")

@@ -23,9 +23,13 @@ K4, its float32 twin and its float64 twin see the same pairs.
 and its backward K5; on CPU tensors the same Function runs the plain twins,
 :func:`aggregate_fused_plain` and :func:`aggregate_fused_backward_plain`.
 The backward is first order only (``once_differentiable``), as the JAX
-backward, a ``pallas_call``, is.  On the card nothing gives way to a twin:
-a failed build or launch raises.  ``fwd_launches`` and ``bwd_launches``
-count the kernels' launches and nothing else.
+backward, a ``pallas_call``, is.  K4 splits the key axis it sums over so
+that its grid fills the card at the models' sizes (:func:`fwd_geometry`:
+query-row tiles x key slices); a last small pass merges a row's slices in
+a fixed order, so it stays deterministic.  On the card nothing gives way
+to a twin: a failed build or launch raises.  ``fwd_launches`` and
+``bwd_launches`` count the kernels' launches (one a wrapper call, however
+many passes it takes) and nothing else.
 """
 
 from __future__ import annotations
@@ -40,16 +44,20 @@ from torch.autograd.function import once_differentiable
 
 from pigs_tpu_torch.ops.aggregate import (_masked_softmax, _wrap,
                                           positional_embedding)
+from pigs_tpu_torch.ops.mixture_kernel import (BLOCKS_PER_SM, _ptr, _sm_count,
+                                               _split)
 
 __all__ = ["radii_of", "kernel_mask", "aggregate_neighbors_fused",
            "aggregate_fused_plain", "aggregate_fused_backward_plain",
-           "build", "fwd_launches", "bwd_launches"]
+           "build", "fwd_geometry", "fwd_launches", "bwd_launches"]
 
 FWD_SOURCES = ("aggregate_fwd.cu",)
 BWD_SOURCES = ("aggregate_bwd.cu",)
 L, K, F = 16, 16, 6          # the widths the kernels are built for
 ROW_PARTIAL = 2 * (1 + 2 * F * 2) * L + F   # K5's per-block gW_d and gfreq
 WARPS = 4                    # query rows (K4, K5) or key columns per block
+KEY_SLICE_UNIT = 32          # K4's key chunk: one ballot, dealt to a slice
+RECORD = 2 + L               # K4's (max, sum, acc[L]) of a row in a slice
 MAX_BWD_BLOCKS = 264         # K5's fixed grid: two blocks per SM of an H100
 PAIR_BUDGET = 1 << 26        # embedding entries a twin chunk may hold
 
@@ -79,7 +87,8 @@ def _fwd_library():
     from pigs_tpu_torch.ops._build import load_library
     lib, info = load_library("aggregate_fwd", FWD_SOURCES)
     fn = lib.pigs_aggregate_fwd
-    fn.argtypes = [_INT] + [_PTR] * 8 + [_FLOAT, _INT, _FLOAT] + [_PTR] * 3
+    fn.argtypes = ([_INT] + [_PTR] * 8 + [_FLOAT, _INT, _FLOAT, _INT]
+                   + [_PTR] * 4)
     fn.restype = _INT
     return lib, info
 
@@ -199,18 +208,37 @@ def _bwd_blocks(n: int) -> int:
     return max(1, min(-(-n // WARPS), MAX_BWD_BLOCKS))
 
 
+def fwd_geometry(n: int, sms: int, blocks_per_sm: int = BLOCKS_PER_SM
+                 ) -> Tuple[int, int, int]:
+    """K4's grid for n Gaussians: ``(query-row tiles, key slices,
+    slice_len)``; a tile is ``WARPS`` rows.  The count of slices follows
+    the mixture kernels' rule (``_split``: runs of ``slice_len`` keys, a
+    whole number of ``KEY_SLICE_UNIT``), but K4 deals the key axis out in
+    chunks of ``KEY_SLICE_UNIT``, slice s taking chunks s, s + slices,
+    s + 2 slices, ...; so no slice holds more than ``slice_len`` keys, and
+    the models' states, which keep their active Gaussians in the first
+    slots, give every slice a share of each row's neighbours."""
+    tiles = max(-(-n // WARPS), 1)
+    return (tiles, *_split(n, KEY_SLICE_UNIT, tiles, sms, blocks_per_sm))
+
+
 def _launch_fwd(features, transform, queries, keys, frequencies, dist, means,
-                radii, sigma_cut, period):
+                radii, sigma_cut, period, blocks_per_sm=BLOCKS_PER_SM):
     global fwd_launches
     fn = _fwd_library()[0].pigs_aggregate_fwd
     n, dev = features.shape[0], features.device
+    _, slices, _ = fwd_geometry(n, _sm_count(dev.index or 0), blocks_per_sm)
     mapped = torch.empty((n, L), dtype=torch.float32, device=dev)
+    partials = None
+    if slices > 1:
+        partials = torch.empty((slices, n, RECORD), dtype=torch.float32,
+                               device=dev)
     out = torch.empty((n, L), dtype=torch.float32, device=dev)
     err = fn(n, features.data_ptr(), transform.data_ptr(),
              queries.data_ptr(), keys.data_ptr(), frequencies.data_ptr(),
              dist.data_ptr(), means.data_ptr(), radii.data_ptr(),
-             float(sigma_cut), *_period_args(period), mapped.data_ptr(),
-             out.data_ptr(), _stream(dev))
+             float(sigma_cut), *_period_args(period), slices,
+             mapped.data_ptr(), _ptr(partials), out.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"aggregate_fwd launch failed: cudaError {err}")
     fwd_launches += 1

@@ -47,11 +47,21 @@
 // cotangent itself, the value factor multiplies gm and gc once at the end
 // of each slice, and gv = sum_j A g.
 //
-// K3 design: K1's first layout.  One thread per sample holds its K*C
-// cotangents in registers; Gaussians are staged through shared memory in
-// tiles of 128; Kahan across tiles; gx(2) in registers.  C = 1 folds v into
-// g.  K3 does not run on the main path (the samples need no gradient there)
-// and keeps that design.
+// K3 design: K1's grid over K3's pair arithmetic.  A block of 128 threads
+// takes a tile of 128 samples, one a thread, each holding its K*C
+// cotangents and its gx(2) sums in registers; blockIdx.y takes one slice of
+// the Gaussian axis, whose Gaussians are staged through shared memory in
+// tiles of up to 128 as two float4 (K1's layout: two broadcast loads a
+// pair) and summed plainly within a tile, Kahan across tiles.  The wrapper
+// cuts the Gaussian axis as K1's (mixture_kernel.py::fwd_geometry: a
+// multiple of 8, about 6 blocks per SM), where the first design, one block
+// column over all n Gaussians, gave 32 blocks at 4096 samples: a quarter of
+// a block per SM, each walking 1664 Gaussians.  With several slices each
+// block writes (slices, 2, m) partials and the combine pass sums them in a
+// fixed order (mixture_common.cuh); with one slice the block writes gx.
+// The pair arithmetic is the first design's (expf, adjoint_fields; C = 1
+// folds v into g).  K3 does not run on the main path (the samples need no
+// gradient there).
 //
 // The TPU design's transposed (comp, n) tiles and the cotangent split done
 // outside the kernel exist for Mosaic and are not carried over.
@@ -342,16 +352,15 @@ template <int ORDER, int C>
 __global__ void __launch_bounds__(kThreads) bwd_sample_kernel(
     const float* __restrict__ samples, const float* __restrict__ means,
     const float* __restrict__ conics, const float* __restrict__ values,
-    Cots cots, int m, int n, int periodic, float period, float inv_period,
-    float* __restrict__ gx) {           // (m, 2)
+    Cots cots, int m, int n, int slice_len, int periodic, float period,
+    float inv_period,
+    float* __restrict__ partials,       // (slices, 2, m), or null
+    float* __restrict__ gx) {           // (m, 2) when partials is null
   constexpr int K = Comps<ORDER>::value;
 
-  __shared__ float s_mx[kTile];
-  __shared__ float s_my[kTile];
-  __shared__ float s_cxx[kTile];
-  __shared__ float s_cxy[kTile];
-  __shared__ float s_cyy[kTile];
-  __shared__ float s_v[C][kTile];
+  // Gaussian t of the tile: (mx, my, cxx, cxy) and (cyy, v0, v1, -).
+  __shared__ float4 s_a[kTile];
+  __shared__ float4 s_b[kTile];
 
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const bool live = j < m;
@@ -366,30 +375,32 @@ __global__ void __launch_bounds__(kThreads) bwd_sample_kernel(
   }
 
   float total[2] = {0.0f, 0.0f}, carry[2] = {0.0f, 0.0f};
-  for (int base = 0; base < n; base += kTile) {
-    const int len = min(kTile, n - base);
-    __syncthreads();
+  const int begin = blockIdx.y * slice_len;
+  const int end = min(n, begin + slice_len);
+  for (int base = begin; base < end; base += kTile) {
+    const int len = min(kTile, end - base);
+    __syncthreads();  // every thread is done with the previous tile
     for (int t = threadIdx.x; t < len; t += kThreads) {
       const int i = base + t;
-      s_mx[t] = means[2 * i];
-      s_my[t] = means[2 * i + 1];
-      s_cxx[t] = conics[3 * i];
-      s_cxy[t] = conics[3 * i + 1];
-      s_cyy[t] = conics[3 * i + 2];
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) s_v[ch][t] = values[i * C + ch];
+      s_a[t] = make_float4(means[2 * i], means[2 * i + 1], conics[3 * i],
+                           conics[3 * i + 1]);
+      s_b[t] = make_float4(conics[3 * i + 2], values[i * C],
+                           C > 1 ? values[i * C + C - 1] : 0.0f, 0.0f);
     }
     __syncthreads();
 
     float part[2] = {0.0f, 0.0f};
 #pragma unroll 2
     for (int t = 0; t < len; ++t) {
-      const float cxx = s_cxx[t], cxy = s_cxy[t], cyy = s_cyy[t];
-      Pair q = pair_geometry(x, y, s_mx[t], s_my[t], cxx, cxy, cyy, periodic,
-                             period, inv_period);
+      const float4 a = s_a[t];
+      const float4 b = s_b[t];
+      const float cxx = a.z, cxy = a.w, cyy = b.x;
+      const float v[2] = {b.y, b.z};
+      Pair q = pair_geometry(x, y, a.x, a.y, cxx, cxy, cyy, periodic, period,
+                             inv_period);
       float r[K];
       if constexpr (C == 1) {
-        q.g *= s_v[0][t];  // rank-1 route: fold v into g
+        q.g *= v[0];  // rank-1 route: fold v into g
 #pragma unroll
         for (int k = 0; k < K; ++k) r[k] = cot[k];
       } else {
@@ -397,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) bwd_sample_kernel(
         for (int k = 0; k < K; ++k) {
           float acc = 0.0f;
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch) acc = fmaf(cot[k * C + ch], s_v[ch][t], acc);
+          for (int ch = 0; ch < C; ++ch) acc = fmaf(cot[k * C + ch], v[ch], acc);
           r[k] = acc;
         }
       }
@@ -409,9 +420,25 @@ __global__ void __launch_bounds__(kThreads) bwd_sample_kernel(
     kahan_add(total[1], carry[1], part[1]);
   }
   if (!live) return;
-  gx[2 * j] = total[0];
-  gx[2 * j + 1] = total[1];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (partials != nullptr)
+      partials[((size_t)blockIdx.y * 2 + k) * m + j] = total[k];
+    else
+      gx[2 * j + k] = total[k];
+  }
 }
+
+// The second pass's store: entry e = k * m + j of the scratch layout to
+// gx (m, 2).
+struct SampleStore {
+  float* gx;
+  int m;
+  __device__ void operator()(int e, float sum) const {
+    const int k = e / m, j = e - k * m;
+    gx[2 * j + k] = sum;
+  }
+};
 
 // ------------------------------------------------------------ dispatch ----
 
@@ -439,11 +466,15 @@ cudaError_t launch_gauss(const Args& a) {
 
 template <int ORDER, int C>
 cudaError_t launch_sample(const Args& a) {
-  const dim3 grid((a.m + kThreads - 1) / kThreads);
+  const dim3 grid((a.m + kThreads - 1) / kThreads, a.slices);
   bwd_sample_kernel<ORDER, C><<<grid, kThreads, 0, a.stream>>>(
-      a.samples, a.means, a.conics, a.values, a.cots, a.m, a.n, a.periodic,
-      a.period, a.inv_period, a.out);
-  return cudaGetLastError();
+      a.samples, a.means, a.conics, a.values, a.cots, a.m, a.n, a.slice_len,
+      a.periodic, a.period, a.inv_period,
+      a.slices > 1 ? a.partials : nullptr, a.out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.slices == 1) return err;
+  return mixture::combine_slices(a.partials, a.slices, 2 * a.m,
+                                 SampleStore{a.out, a.m}, a.stream);
 }
 
 template <template <int, int> class Launch>
@@ -529,17 +560,26 @@ extern "C" int pigs_mixture_bwd_gauss(int order, int c, const void* samples,
   return static_cast<int>(dispatch<GaussLaunch>(order, c, a));
 }
 
-// K3: gx (m, 2).
+// K3: gx (m, 2); the Gaussian axis is cut into `slices` runs of
+// `slice_len` Gaussians and, with slices > 1, partials is scratch of
+// (slices, 2, m) floats.
 extern "C" int pigs_mixture_bwd_sample(int order, int c, const void* samples,
                                        const void* means, const void* conics,
                                        const void* values, const void* cot0,
                                        const void* cot1, const void* cot2,
                                        const void* cot3, int m, int n,
-                                       int periodic, float period, void* gx,
+                                       int slices, int slice_len, int periodic,
+                                       float period, void* partials, void* gx,
                                        void* stream) {
   if (m == 0) return 0;
+  if (slices < 1 || slice_len < 1 || (long long)slices * slice_len < n ||
+      (slices > 1 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(samples, means, conics, values, cot0, cot1, cot2, cot3,
                      m, n, periodic, period, stream);
+  a.slices = slices;
+  a.slice_len = slice_len;
+  a.partials = static_cast<float*>(partials);
   a.out = static_cast<float*>(gx);
   return static_cast<int>(dispatch<SampleLaunch>(order, c, a));
 }

@@ -23,12 +23,14 @@ which compute the same hand-derived adjoint.  Anything else raises.  The
 backward is first order only (``once_differentiable``): a second-order
 request raises.
 
-K1 and K2 split the axis they sum over (the Gaussians for K1, the samples
-for K2) so that the grid fills the card at the main path's small shapes
-(:func:`fwd_geometry`, :func:`gauss_geometry`); a second pass adds the
-slices in a fixed order, so both stay deterministic.  ``launches``,
-``bwd_gauss_launches`` and ``bwd_sample_launches`` count the kernels'
-launches (one per wrapper call, the second pass included) and nothing else.
+Each kernel splits the axis it sums over so that the grid fills the card
+at the main path's small shapes: K1 and K3 cut the Gaussians into slices
+(:func:`fwd_geometry`: sample tiles x Gaussian slices), K2 the samples
+(:func:`gauss_geometry`: Gaussian tiles x sample slices).  A second pass
+adds the slices in a fixed order, so all three stay deterministic.
+``launches``, ``bwd_gauss_launches`` and ``bwd_sample_launches`` count the
+kernels' launches (one per wrapper call, the second pass included) and
+nothing else.
 """
 
 from __future__ import annotations
@@ -52,8 +54,8 @@ __all__ = ["mixture_forward", "mixture_forward_plain",
 GROUP_SIZES = (1, 2, 3, 4)   # packed components per derivative order
 FWD_SOURCES = ("mixture_fwd.cu",)
 BWD_SOURCES = ("mixture_bwd.cu",)
-THREADS = 128                # samples per K1 block, Gaussians per K2 block
-FWD_SLICE_UNIT = 8           # K1's Gaussian slices: whole numbers of these
+THREADS = 128                # samples per K1/K3 block, Gaussians per K2 block
+FWD_SLICE_UNIT = 8           # K1/K3 Gaussian slices: whole numbers of these
 BWD_SLICE_UNIT = 32          # K2's sample slices: whole numbers of these
 BLOCKS_PER_SM = 6            # the grid the slicing aims for (at least 2)
 
@@ -100,7 +102,8 @@ def _bwd_library():
     gauss.restype = _INT
     sample = lib.pigs_mixture_bwd_sample
     sample.argtypes = [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                       _PTR, _INT, _INT, _INT, ctypes.c_float, _PTR, _PTR]
+                       _PTR, _INT, _INT, _INT, _INT, _INT, ctypes.c_float,
+                       _PTR, _PTR, _PTR]
     sample.restype = _INT
     return lib, info
 
@@ -297,8 +300,8 @@ def _split(length: int, unit: int, tiles: int, sms: int,
 
 def fwd_geometry(m: int, n: int, sms: int,
                  blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int, int]:
-    """K1's grid for m samples over n Gaussians: ``(sample tiles, Gaussian
-    slices, slice_len)``; a tile is ``THREADS`` samples."""
+    """K1's and K3's grid for m samples over n Gaussians: ``(sample tiles,
+    Gaussian slices, slice_len)``; a tile is ``THREADS`` samples."""
     tiles = max(-(-m // THREADS), 1)
     return (tiles, *_split(n, FWD_SLICE_UNIT, tiles, sms, blocks_per_sm))
 
@@ -367,15 +370,23 @@ def _launch_bwd_gauss(means, conics_packed, values, samples, cots, order,
 
 
 def _launch_bwd_sample(means, conics_packed, values, samples, cots, order,
-                       period):
+                       period, blocks_per_sm=BLOCKS_PER_SM):
     global bwd_sample_launches
     fn = _bwd_library()[0].pigs_mixture_bwd_sample
-    m, c = samples.shape[0], values.shape[1]
-    gx = torch.empty((m, 2), dtype=torch.float32, device=samples.device)
+    m, n, c = samples.shape[0], means.shape[0], values.shape[1]
+    dev = samples.device
+    _, slices, slice_len = fwd_geometry(m, n, _sm_count(dev.index or 0),
+                                        blocks_per_sm)
+    partials = None
+    if slices > 1:
+        partials = torch.empty((slices, 2, m), dtype=torch.float32,
+                               device=dev)
+    gx = torch.empty((m, 2), dtype=torch.float32, device=dev)
     err = fn(order, c, samples.data_ptr(), means.data_ptr(),
              conics_packed.data_ptr(), values.data_ptr(),
-             *_cot_args(cots, order), m, means.shape[0],
-             *_period_args(period), gx.data_ptr(), _stream(samples.device))
+             *_cot_args(cots, order), m, n, slices, slice_len,
+             *_period_args(period), _ptr(partials), gx.data_ptr(),
+             _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"mixture_bwd_sample launch failed: cudaError {err}")

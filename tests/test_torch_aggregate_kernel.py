@@ -188,3 +188,123 @@ def test_raises(bad):
         with pytest.raises(ValueError, match="impl"):
             ak.aggregate_neighbors_fused(*xs, torch.from_numpy(means), radii,
                                          impl="pallas")
+
+
+# ------------------------------------------------- K4's grid and its merge ----
+
+SMS = 132   # an H100 SXM
+
+
+def slice_keys(n, slices):
+    """The keys of each K4 slice: slice s takes the 32-key chunks s,
+    s + slices, s + 2 slices, ..."""
+    unit = ak.KEY_SLICE_UNIT
+    return [[j for c in range(s, -(-n // unit), slices)
+             for j in range(c * unit, min(n, (c + 1) * unit))]
+            for s in range(slices)]
+
+
+def assert_keys_covered(n, slices, slice_len):
+    keys = slice_keys(n, slices)
+    assert sorted(j for run in keys for j in run) == list(range(n))
+    assert all(0 < len(run) <= slice_len for run in keys)
+    assert slices == 1 or slice_len % ak.KEY_SLICE_UNIT == 0
+
+
+@pytest.mark.parametrize("n", [640, 1664, 4096, 8192, 512, 1, 31, 33, 1000,
+                               65536])
+def test_fwd_geometry_covers_rows_and_keys(n):
+    tiles, slices, slice_len = ak.fwd_geometry(n, SMS)
+    assert tiles * ak.WARPS >= n and (tiles - 1) * ak.WARPS < n
+    assert_keys_covered(n, slices, slice_len)
+
+
+@pytest.mark.parametrize("n,want", [(640, (160, 5, 128)),
+                                    (1664, (416, 2, 832))])
+def test_fwd_geometry_fills_the_card_at_the_models_sizes(n, want):
+    # NS (capacity 640) and the flagship (1664): about 6 blocks per SM.
+    tiles, slices, slice_len = ak.fwd_geometry(n, SMS)
+    assert (tiles, slices, slice_len) == want
+    assert tiles * slices >= 2 * SMS
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_fwd_geometry_one_slice_when_the_rows_fill_the_card(n):
+    assert ak.fwd_geometry(n, SMS) == (n // ak.WARPS, 1, n)
+
+
+@pytest.mark.parametrize("blocks_per_sm", [2, 4, 6, 8])
+@pytest.mark.parametrize("n", [640, 1664])
+def test_fwd_geometry_aims_at_the_target_given(n, blocks_per_sm):
+    tiles, slices, slice_len = ak.fwd_geometry(n, SMS, blocks_per_sm)
+    assert_keys_covered(n, slices, slice_len)
+    assert (tiles * slices >= blocks_per_sm * SMS
+            or slice_len == ak.KEY_SLICE_UNIT)
+
+
+def slice_records(x, slices, period):
+    """K4's per-slice records, float64 torch: for each slice's keys, every
+    row's max logit over its neighbours there (-inf when none), the sum of
+    exp(logit - max) and acc_l = sum_j exp(logit_ij - max) mapped_jl
+    gate_ijl."""
+    f, tr, q, k, fr, dist, means, radii = x
+    n = f.shape[0]
+    mask = ak.kernel_mask(means, radii, 3.0, period)
+    mapped = f @ tr.T
+    rel = tagg._wrap(means[None, :, :] - means[:, None, :], period)
+    emb = torch.cat([tagg.positional_embedding(rel, fr),
+                     tagg.positional_embedding(2.0 * rel, fr)], dim=-1)
+    gate = torch.einsum("ijE,lE->ijl", emb, dist)
+    logits = q @ k.T / math.sqrt(q.shape[1])
+    records = []
+    for keys in slice_keys(n, slices):
+        nb = mask[:, keys]
+        lg = logits[:, keys].masked_fill(~nb, -math.inf)
+        top = lg.max(dim=1).values
+        p = torch.zeros_like(lg)
+        p[nb] = torch.exp(lg - top[:, None])[nb]
+        acc = torch.einsum("ij,jl,ijl->il", p, mapped[keys], gate[:, keys])
+        records.append((top, p.sum(dim=1), acc, nb.any(dim=1)))
+    return records
+
+
+def merge_records(records):
+    """K4's merge pass in slice order: the slices with a neighbour rescaled
+    to their common max; 0 for a row with none in any slice."""
+    top = torch.full_like(records[0][0], -math.inf)
+    for m, s, _, _ in records:
+        live = s > 0
+        top[live] = torch.maximum(top[live], m[live])
+    num = torch.zeros_like(records[0][2])
+    den = torch.zeros_like(records[0][1])
+    for m, s, acc, _ in records:
+        live = s > 0
+        e = torch.exp(m[live] - top[live])   # never -inf - -inf
+        num[live] += e[:, None] * acc[live]
+        den[live] += e * s[live]
+    out = torch.zeros_like(num)
+    out[den > 0] = num[den > 0] / den[den > 0, None]
+    return out
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3])
+@pytest.mark.parametrize("period", [None, 2.0])
+def test_slice_merge_equals_the_twin(slices, period):
+    """The merge K4 runs over its key slices, in float64, against the plain
+    twin: equal within 1e-12, with a row that has no neighbour in any slice
+    and rows with no neighbour in some slice."""
+    args, means, cov, active = make(n=130, log_var=-6.0, active_frac=0.8,
+                                    spread=1.4 if period else 1.0)
+    order = np.argsort(means[:, 0])   # each key chunk then a strip in x
+    x = [torch.from_numpy(args[k]).double() for k in NAMES] + [
+        torch.from_numpy(means[order]).double(),
+        torch_radii(cov[order], active[order]).double()]
+    records = slice_records(x, slices, period)
+    got = merge_records(records)
+    want = ak.aggregate_fused_plain(*x, period=period)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    reached = torch.stack([r[3] for r in records], dim=1)   # (rows, slices)
+    lonely = ~reached.any(dim=1)
+    assert bool(lonely.any()) and bool((got[lonely] == 0).all())
+    if len(records) > 1:
+        assert bool((~reached & reached.any(dim=1, keepdim=True)).any())

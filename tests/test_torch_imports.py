@@ -15,7 +15,8 @@ PORT_FILES = sorted((ROOT / "pigs_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "train_torch.py",
     ROOT / "scripts" / "validate_ns_torch.py",
     ROOT / "scripts" / "solve_no_mlp_torch.py",
-    ROOT / "scripts" / "validate_no_mlp_2d_torch.py"]
+    ROOT / "scripts" / "validate_no_mlp_2d_torch.py",
+    ROOT / "scripts" / "aggregate_balance_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pigs_tpu")
 
 

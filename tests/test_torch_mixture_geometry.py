@@ -1,9 +1,9 @@
-"""The launch geometry of the mixture kernels K1 and K2 (CPU).
+"""The launch geometry of the mixture kernels K1, K2 and K3 (CPU).
 
-K1 (``mixture_fwd.cu``) runs a grid of sample tiles x Gaussian slices and
-K2 (``mixture_bwd.cu``) a grid of Gaussian tiles x sample slices; the
-wrapper picks the slices (``fwd_geometry``, ``gauss_geometry``) and the
-kernels mask the ragged edges.  These tests hold the helpers to what the
+K1 (``mixture_fwd.cu``) and K3 (``mixture_bwd.cu``, sample side) run a grid
+of sample tiles x Gaussian slices, both from ``fwd_geometry``, and K2
+(``mixture_bwd.cu``, Gaussian side) a grid of Gaussian tiles x sample slices
+from ``gauss_geometry``; the kernels mask the ragged edges.  These tests hold the helpers to what the
 kernels rely on: the tiles and slices cover both axes exactly, every slice
 but the last is a whole number of slice units, and at the main path's
 shapes the grid puts at least two blocks on each of an H100's 132 SMs.
@@ -29,6 +29,8 @@ K1_SHAPES = {"1664x1664 order 2": (1664, 1664),
 # K2 at the two training calls: collocation (order 2) and boundary (order 0).
 K2_SHAPES = {"4096x1664 order 2": (4096, 1664),
              "4096x1664 order 0": (4096, 1664)}
+# K3 runs on no path; the card times it at K2's two training shapes.
+K3_SHAPES = dict(K2_SHAPES)
 # Ragged, tiny, empty and large cases besides.
 OTHER_SHAPES = [(1000, 333), (1, 1), (0, 5), (5, 0), (130, 5000), (257, 9),
                 (65536, 2048), (129, 131)]
@@ -69,13 +71,19 @@ def test_gauss_geometry_covers_both_axes(m, n):
     _assert_covers(m, slices, slice_len, mk.BWD_SLICE_UNIT)
 
 
+# kernel -> (geometry helper, shapes by label, slice unit)
+GEOMETRY = {"K1": (mk.fwd_geometry, K1_SHAPES, mk.FWD_SLICE_UNIT),
+            "K2": (mk.gauss_geometry, K2_SHAPES, mk.BWD_SLICE_UNIT),
+            "K3": (mk.fwd_geometry, K3_SHAPES, mk.FWD_SLICE_UNIT)}
+
+
 @pytest.mark.parametrize("kernel,label",
                          [("K1", k) for k in K1_SHAPES]
-                         + [("K2", k) for k in K2_SHAPES])
+                         + [("K2", k) for k in K2_SHAPES]
+                         + [("K3", k) for k in K3_SHAPES])
 def test_main_path_grids_fill_the_card(kernel, label):
-    geometry, shape = ((mk.fwd_geometry, K1_SHAPES[label]) if kernel == "K1"
-                       else (mk.gauss_geometry, K2_SHAPES[label]))
-    tiles, slices, _ = geometry(*shape, SMS)
+    geometry, shapes, _ = GEOMETRY[kernel]
+    tiles, slices, _ = geometry(*shapes[label], SMS)
     assert tiles * slices >= 2 * SMS
 
 
@@ -88,34 +96,36 @@ def test_one_slice_when_the_tiles_fill_the_card():
     assert mk.fwd_geometry(m, 2048, SMS) == (6 * SMS, 1, 2048)
 
 
+def test_k3_grid_at_the_training_shape():
+    # K3 takes K1's grid: 32 sample tiles x 26 Gaussian slices of 64 at
+    # 4096x1664, 832 blocks (its first design ran 32).
+    assert mk.fwd_geometry(4096, 1664, SMS) == (32, 26, 64)
+
+
 @pytest.mark.parametrize("kernel,m,n", [("K1", 1000, 5), ("K1", 1, 8),
-                                        ("K2", 20, 333), ("K2", 32, 1)])
+                                        ("K2", 20, 333), ("K2", 32, 1),
+                                        ("K3", 1000, 5), ("K3", 4096, 8)])
 def test_a_short_summed_axis_takes_one_slice(kernel, m, n):
     # The main pass then writes the outputs itself (no combine pass); the
-    # card checks this branch at K1 1000x5 and K2 20x333.
-    geometry = mk.fwd_geometry if kernel == "K1" else mk.gauss_geometry
+    # card checks this branch at K1 and K3 1000x5 and K2 20x333.
+    geometry = GEOMETRY[kernel][0]
     tiles, slices, slice_len = geometry(m, n, SMS)
     assert slices == 1
-    assert slice_len >= (n if kernel == "K1" else m)
+    assert slice_len >= (m if kernel == "K2" else n)
 
 
 @pytest.mark.parametrize("blocks_per_sm", [2, 4, 6, 8])
 @pytest.mark.parametrize("kernel,label",
                          [("K1", k) for k in K1_SHAPES]
-                         + [("K2", k) for k in K2_SHAPES])
+                         + [("K2", k) for k in K2_SHAPES]
+                         + [("K3", k) for k in K3_SHAPES])
 def test_grid_aims_at_the_target_given(kernel, label, blocks_per_sm):
     # The targets the card times against each other: each grid covers both
     # axes and reaches the target unless the slices are down to one unit.
-    if kernel == "K1":
-        m, n = K1_SHAPES[label]
-        tiles, slices, slice_len = mk.fwd_geometry(m, n, SMS, blocks_per_sm)
-        _assert_tiles_cover(m, tiles)
-        _assert_covers(n, slices, slice_len, mk.FWD_SLICE_UNIT)
-        unit = mk.FWD_SLICE_UNIT
-    else:
-        m, n = K2_SHAPES[label]
-        tiles, slices, slice_len = mk.gauss_geometry(m, n, SMS, blocks_per_sm)
-        _assert_tiles_cover(n, tiles)
-        _assert_covers(m, slices, slice_len, mk.BWD_SLICE_UNIT)
-        unit = mk.BWD_SLICE_UNIT
+    geometry, shapes, unit = GEOMETRY[kernel]
+    m, n = shapes[label]
+    tiles, slices, slice_len = geometry(m, n, SMS, blocks_per_sm)
+    tiled, summed = (n, m) if kernel == "K2" else (m, n)
+    _assert_tiles_cover(tiled, tiles)
+    _assert_covers(summed, slices, slice_len, unit)
     assert tiles * slices >= blocks_per_sm * SMS or slice_len == unit
