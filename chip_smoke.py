@@ -12,9 +12,9 @@ Phases, in order; any failure exits non-zero:
                with nvcc for sm_90a, all four sources at once: K1 (mixture
                forward), K2/K3 (its backward, Gaussian and sample side), K4
                (fused neighbour aggregation) and K5 (its backward); each
-               instantiation's registers and spills from ptxas (a K1, K2,
-               K3 or K4 instantiation that spills fails, combine and merge
-               passes included);
+               instantiation's registers and spills from ptxas (a K1-K5
+               instantiation that spills fails, combine, merge and
+               reduction passes included);
   2. kernel    K1 against its plain PyTorch twin and the plain path in
                float32 (norm-relative error <= 1e-5 per field) and against
                the plain path in float64 (<= 1e-4), at the two shapes of the
@@ -86,16 +86,18 @@ Phases, in order; any failure exits non-zero:
                network runs (its error and the number of pairs the two
                neighbour rules decide differently; above 1e-4 a failure
                only when no pair differs); exact K4/K5 launch counts; K4
-               bitwise equal over two launches at each real input (its key
-               axis in 2 or 5 slices).  Then forward and forward+backward
-               call times of K4/K5, the factored path and the plain twin at
-               the real inputs (head 0) and at benchmarks/perf_suite.py's
-               synthetic inputs, n in {512, 1664, 4096, 8192}, where K4 in
-               one slice (n >= 4096) is also checked against its twins and
-               for equal bits; K4 and K5 at the real inputs timed as in 8,
-               the bound counting the neighbour pairs of each input, K4
-               with its grid, its graph replay aimed at 2-8 blocks per SM
-               and the factored aggregation's device time beside it;
+               and K5 each bitwise equal over two launches at each real
+               input (the summed axis in 2 or 5 slices).  Then forward and
+               forward+backward call times of K4/K5, the factored path and
+               the plain twin at the real inputs (head 0) and at
+               benchmarks/perf_suite.py's synthetic inputs, n in {512,
+               1664, 4096, 8192}, where K4 in one slice (n >= 4096), and K5
+               in one slice at n=4096, are also checked against their twins
+               and for equal bits; K4 and K5 at the real inputs timed as in
+               8, the bound counting the neighbour pairs of each input,
+               each with its grid and its graph replay aimed at 2-8 blocks
+               per SM (K5's target taken printed), and the factored
+               aggregation's device time beside K4;
  11. ns-train  Navier-Stokes training from artifacts/ns_vorttrain_train_
                torch.npz (the NS checkpoint's training state, one epoch's
                inputs with the reconstruction targets, and the JAX float64
@@ -152,6 +154,7 @@ the last line is a JSON object with ``ok`` and the device.  Without a CUDA
 device, or outside a checkout of the repo, it fails and prints no result.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -192,7 +195,7 @@ NO_MLP_1D_STEP_TOL = 0.02   # 1-D steps 1-3 vs FD (JAX: 0.0023-0.0053)
 
 DEVICE_RUNS = 20         # launches in one profiled window (device_ms)
 GRAPH_LAUNCHES = 100     # raw launches captured in one CUDA graph (graph_ms)
-SWEEP_BLOCKS_PER_SM = (2, 4, 6, 8)  # K1-K4 grid targets timed against each other
+SWEEP_BLOCKS_PER_SM = (2, 4, 6, 8)  # K1-K5 grid targets timed against each other
 # An H100 SXM's peaks per millisecond (NVIDIA's data sheet, at 700 W):
 # float32 outside the tensor cores, special-function results (exp, sin,
 # cos: 132 SMs x 16 a clock x 1.98 GHz) and HBM3 bytes.
@@ -675,7 +678,7 @@ def time_k1(label, mu, con, val, smp, order, mask, period, mk, card) -> dict:
 
 
 def sweep_grid(name, label, geometry, launch, card) -> dict:
-    """A sliced kernel (K1-K4) at one input with the slicing aimed at each
+    """A sliced kernel (K1-K5) at one input with the slicing aimed at each
     of SWEEP_BLOCKS_PER_SM blocks per SM (``mixture_kernel.BLOCKS_PER_SM``
     is the one the paths and wrappers run): the graph-replayed device time
     per launch by target."""
@@ -689,7 +692,7 @@ def sweep_grid(name, label, geometry, launch, card) -> dict:
 
 
 def grid_of(mod, geometry, unit: int) -> dict:
-    """A K1-K4 geometry ``(tiles, slices, slice_len)`` as the kernels
+    """A K1-K5 geometry ``(tiles, slices, slice_len)`` as the kernels
     line reports it; fails unless it puts 2 blocks on every SM or, where the
     summed axis is too short for that, cuts it into slices of the slicing
     ``unit`` (the most the geometry helpers' contract allows)."""
@@ -1342,6 +1345,7 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
     checked; then the timings at perf_suite's sizes."""
     import torch
 
+    from pigs_tpu_torch.ops import mixture_kernel as mk
     from pigs_tpu_torch.ops.aggregate import (aggregate_neighbors_factored,
                                               neighbor_mask)
     gen = torch.Generator().manual_seed(3)
@@ -1414,13 +1418,16 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
             check(e <= KERNEL_F64_TOL,
                   f"{label}: K5 grad {n} vs float64 {e:.3e} > "
                   f"{KERNEL_F64_TOL}")
-    # Two raw K4 launches on each real input give the same bits.
-    for label, period, _, x32, _ in prepared:
+    # Two raw K4 launches, and two raw K5 launches, on each real input
+    # give the same bits.
+    for label, period, _, x32, cot in prepared:
         check_deterministic(f"K4 {label}",
                             lambda: ak._launch_fwd(*x32, 3.0, period))
+        check_deterministic(f"K5 {label}",
+                            lambda: ak._launch_bwd(*x32, cot, 3.0, period))
     print(f"[aggregate] {len(prepared)} cases pass; max abs err vs the f32 "
           f"twins: K4 {max_abs['fwd']:.3e}, K5 {max_abs['bwd']:.3e}; K4 "
-          "bitwise equal over two launches", flush=True)
+          "and K5 each bitwise equal over two launches", flush=True)
 
     # Times at the real inputs (head 0 of each case) and at perf_suite's
     # inputs.  The float32 twin's forward+backward at n=8192 keeps every
@@ -1449,18 +1456,28 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
                       f"{sum(t['factored_kernels'].values())} kernels a call "
                       f"(profiler), K4 {t['device_ms']:.4f} ms ({card})",
                       flush=True)
-                t["graph_ms_by_blocks_per_sm"] = sweep_grid(
-                    name, label,
-                    lambda b: ak.fwd_geometry(f.shape[0], ak._sm_count(0), b),
-                    lambda b: ak._launch_fwd(*x32, 3.0, period,
-                                             blocks_per_sm=b), card)
+                launch = functools.partial(ak._launch_fwd, *x32, 3.0, period)
+            else:
+                launch = functools.partial(ak._launch_bwd, *x32, cot, 3.0,
+                                           period)
+            t["graph_ms_by_blocks_per_sm"] = sweep_grid(
+                name, label,
+                lambda b: ak.fwd_geometry(f.shape[0], ak._sm_count(0), b),
+                lambda b: launch(blocks_per_sm=b), card)
+            if name == "aggregate_bwd":
+                print(f"[grid] aggregate_bwd {label}: target taken "
+                      f"{mk.BLOCKS_PER_SM} blocks per SM "
+                      "(mixture_kernel.BLOCKS_PER_SM, K4's)", flush=True)
             kernel_times[name][label] = t
     for n in PERF_SUITE_SIZES:
         inputs, means, cov = perf_suite_inputs(n, gen, dev)
         active = torch.ones(n, dtype=torch.bool, device=dev)
         mask = neighbor_mask(means, cov, active)
         if ak.fwd_geometry(n, ak._sm_count(0))[1] == 1:
-            one_slice_k4(ak, n, inputs, means, ak.radii_of(cov, active))
+            # K5 too at n=4096 (its float64 twin's autograd state grows
+            # as n^2).
+            one_slice_k45(ak, n, inputs, means, ak.radii_of(cov, active),
+                          gen, with_k5=n == 4096)
         synth = time_aggregation(ak, *inputs, means, ak.radii_of(cov, active),
                                  mask, None)
         times.update({(impl, key, n): t for (impl, key), t in synth.items()})
@@ -1472,12 +1489,29 @@ def aggregate_phase(dev, ak, card, cases) -> dict:
             "times": times, "kernel_times": kernel_times}
 
 
-def one_slice_k4(ak, n, inputs, means, radii):
+def one_slice_k45(ak, n, inputs, means, radii, gen, with_k5):
     """K4 where its grid takes one slice (the warps write the output, no
     merge pass): against its float32 and float64 twins, and two launches
-    bitwise equal."""
+    bitwise equal; with ``with_k5``, K5 in one slice the same way (its
+    seven gradients against the float64 twin)."""
     import torch
     x32 = [x.contiguous() for x in (*inputs, means, radii)]
+    if with_k5:
+        cot = torch.randn((n, 16), generator=gen).to(means.device)
+        grads = ak._launch_bwd(*x32, cot, 3.0, None)
+        want = ak.aggregate_fused_backward_plain(
+            *(x.double() for x in x32), cot.double())
+        errs = [rel_err(a, b) for a, b in zip(grads, want)]
+        del want
+        check(all(bool(torch.isfinite(g).all()) for g in grads),
+              f"K5 n={n}: not finite")
+        check(max(errs) <= KERNEL_F64_TOL,
+              f"K5 n={n} (one slice): vs float64 twin {max(errs):.3e}")
+        check_deterministic(f"K5 n={n}",
+                            lambda: ak._launch_bwd(*x32, cot, 3.0, None))
+        print(f"  K5 n={n} (one slice, perf_suite's input): largest rel "
+              f"err of the seven gradients vs twin f64 {max(errs):.3e}; two "
+              "launches equal", flush=True)
     with torch.no_grad():
         out = ak._launch_fwd(*x32, 3.0, None)
         e32 = rel_err(out, ak.aggregate_fused_plain(*x32))
@@ -1524,6 +1558,10 @@ def time_k45(ak, x32, cot, nbr, period) -> dict:
             lambda: torch.autograd.grad(out, tin, cot, retain_graph=True),
             lambda: ak.aggregate_fused_backward_plain(*x32, cot,
                                                       period=period))
+        # K5's statistics, row and column passes take K4's grid.
+        bwd["grid"] = grid_of(ak, ak.fwd_geometry(x32[0].shape[0],
+                                                  ak._sm_count(0)),
+                              ak.KEY_SLICE_UNIT)
     return {"aggregate_fwd": fwd, "aggregate_bwd": bwd}
 
 
@@ -1875,9 +1913,10 @@ def run() -> tuple:
             print(f"  ptxas: {kernel}: {r['registers']} registers, "
                   f"{r['spill_stores']} + {r['spill_loads']} bytes spilled",
                   flush=True)
-    # Every K1-K4 instantiation, compiled now or cached, spills nothing.
+    # Every K1-K5 instantiation, compiled now or cached, spills nothing.
     ptxas = {lib: ptxas_report(infos[lib].log)
-             for lib in ("mixture_fwd", "mixture_bwd", "aggregate_fwd")}
+             for lib in ("mixture_fwd", "mixture_bwd", "aggregate_fwd",
+                         "aggregate_bwd")}
     for lib, kernel, count in (
             ("mixture_fwd", "mixture_fwd_kernel<", 8),
             ("mixture_fwd", "combine_slices_kernel<FwdStore", 2),
@@ -1886,13 +1925,20 @@ def run() -> tuple:
             ("mixture_bwd", "bwd_sample_kernel<", 8),
             ("mixture_bwd", "combine_slices_kernel<SampleStore", 1),
             ("aggregate_fwd", "aggregate_fwd_kernel", 1),
-            ("aggregate_fwd", "aggregate_merge_kernel", 1)):
+            ("aggregate_fwd", "aggregate_merge_kernel", 1),
+            ("aggregate_bwd", "mapped_kernel", 1),
+            ("aggregate_bwd", "aggregate_bwd_stats_kernel", 1),
+            ("aggregate_bwd", "aggregate_bwd_row_kernel", 1),
+            ("aggregate_bwd", "aggregate_bwd_row_merge_kernel", 1),
+            ("aggregate_bwd", "aggregate_bwd_col_kernel", 1),
+            ("aggregate_bwd", "aggregate_bwd_col_merge_kernel", 1),
+            ("aggregate_bwd", "aggregate_bwd_reduce_kernel", 1)):
         found = sum(k.startswith(kernel) for k in ptxas[lib])
         check(found == count, f"{lib}: ptxas reported {found} of the "
               f"{count} {kernel}... instantiations")
     spilled = [k for r in ptxas.values() for k, v in r.items()
                if v["spill_stores"] + v["spill_loads"] > 0]
-    check(not spilled, f"K1-K4 instantiations spill: {spilled}")
+    check(not spilled, f"K1-K5 instantiations spill: {spilled}")
 
     # 2. K1 vs plain
     cfg, network, data = load_fixture(FIXTURE, device=dev)
@@ -2286,13 +2332,11 @@ def run() -> tuple:
             row["grid_by_shape"] = col("grid")
             row["graph_ms_by_blocks_per_sm_by_shape"] = col(
                 "graph_ms_by_blocks_per_sm")
-        if i < 4:
-            lib = ("mixture_fwd", "mixture_bwd", "mixture_bwd",
-                   "aggregate_fwd")[i]
-            row["ptxas"] = {k: v for k, v in ptxas[lib].items()
-                            if i not in (1, 2) or (i == 2) == (
-                                k.startswith("bwd_sample")
-                                or "SampleStore" in k)}
+        lib = ("mixture_fwd", "mixture_bwd", "mixture_bwd", "aggregate_fwd",
+               "aggregate_bwd")[i]
+        row["ptxas"] = {k: v for k, v in ptxas[lib].items()
+                        if i not in (1, 2) or (i == 2) == (
+                            k.startswith("bwd_sample") or "SampleStore" in k)}
         if name in step_profile:
             row["device_ms_per_pn_step"] = \
                 step_profile[name]["device_ms_per_step"]

@@ -8,7 +8,9 @@ and their plain twins (port of :mod:`pigs_tpu.ops.pallas_aggregate`).
   fly.
 * K5 (``csrc/aggregate_bwd.cu``) replaces ``_bwd_kernel``: the gradients of
   features, transform, queries, keys, frequencies, distance_transform and
-  means (both the query-side and the key-side terms) by full recompute.
+  means (both the query-side and the key-side terms) by full recompute, in
+  a statistics pass, a row pass and a column pass over K4's grid, each
+  followed by a merge of the slices in a fixed order.
 
 The neighbour rule is the kernel's (:func:`kernel_mask`): a pair (i, j) are
 neighbours when ``dist^2 <= cut^2``, ``cut > 0`` and ``i != j``, with
@@ -26,10 +28,12 @@ The backward is first order only (``once_differentiable``), as the JAX
 backward, a ``pallas_call``, is.  K4 splits the key axis it sums over so
 that its grid fills the card at the models' sizes (:func:`fwd_geometry`:
 query-row tiles x key slices); a last small pass merges a row's slices in
-a fixed order, so it stays deterministic.  On the card nothing gives way
-to a twin: a failed build or launch raises.  ``fwd_launches`` and
-``bwd_launches`` count the kernels' launches (one a wrapper call, however
-many passes it takes) and nothing else.
+a fixed order, so it stays deterministic.  K5's passes over pairs take the
+same grid (its column pass with columns and rows swapped: the neighbour
+rule is symmetric).  On the card nothing gives way to a twin: a failed
+build or launch raises.  ``fwd_launches`` and ``bwd_launches`` count the
+kernels' launches (one a wrapper call, however many passes it takes) and
+nothing else.
 """
 
 from __future__ import annotations
@@ -54,11 +58,9 @@ __all__ = ["radii_of", "kernel_mask", "aggregate_neighbors_fused",
 FWD_SOURCES = ("aggregate_fwd.cu",)
 BWD_SOURCES = ("aggregate_bwd.cu",)
 L, K, F = 16, 16, 6          # the widths the kernels are built for
-ROW_PARTIAL = 2 * (1 + 2 * F * 2) * L + F   # K5's per-block gW_d and gfreq
 WARPS = 4                    # query rows (K4, K5) or key columns per block
 KEY_SLICE_UNIT = 32          # K4's key chunk: one ballot, dealt to a slice
 RECORD = 2 + L               # K4's (max, sum, acc[L]) of a row in a slice
-MAX_BWD_BLOCKS = 264         # K5's fixed grid: two blocks per SM of an H100
 PAIR_BUDGET = 1 << 26        # embedding entries a twin chunk may hold
 
 # Number of times each CUDA kernel was launched in this process.
@@ -99,8 +101,10 @@ def _bwd_library():
     lib, info = load_library("aggregate_bwd", BWD_SOURCES)
     fn = lib.pigs_aggregate_bwd
     fn.argtypes = ([_INT] + [_PTR] * 9 + [_FLOAT, _INT, _FLOAT, _INT]
-                   + [_PTR] * 13)
+                   + [_PTR] * 9)
     fn.restype = _INT
+    lib.pigs_aggregate_bwd_scratch.argtypes = [_INT, _INT]
+    lib.pigs_aggregate_bwd_scratch.restype = ctypes.c_longlong
     return lib, info
 
 
@@ -201,13 +205,6 @@ def _period_args(period):
             float(period) if period is not None else 0.0)
 
 
-def _bwd_blocks(n: int) -> int:
-    """K5's grid: one warp per row (and column) up to ``MAX_BWD_BLOCKS``
-    blocks, whose warps then stride the rest; fixed by n alone, so the
-    order of every sum is too."""
-    return max(1, min(-(-n // WARPS), MAX_BWD_BLOCKS))
-
-
 def fwd_geometry(n: int, sms: int, blocks_per_sm: int = BLOCKS_PER_SM
                  ) -> Tuple[int, int, int]:
     """K4's grid for n Gaussians: ``(query-row tiles, key slices,
@@ -246,25 +243,26 @@ def _launch_fwd(features, transform, queries, keys, frequencies, dist, means,
 
 
 def _launch_bwd(features, transform, queries, keys, frequencies, dist, means,
-                radii, cot, sigma_cut, period):
+                radii, cot, sigma_cut, period, blocks_per_sm=BLOCKS_PER_SM):
+    """K5 over :func:`fwd_geometry`'s grid (its statistics, row and column
+    passes all take it), with its scratch in one buffer."""
     global bwd_launches
-    fn = _bwd_library()[0].pigs_aggregate_bwd
+    lib = _bwd_library()[0]
     n, dev = features.shape[0], features.device
-    blocks = _bwd_blocks(n)
+    _, slices, _ = fwd_geometry(n, _sm_count(dev.index or 0), blocks_per_sm)
+    scratch = torch.empty(lib.pigs_aggregate_bwd_scratch(n, slices),
+                          dtype=torch.float32, device=dev)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    mapped, stats, gmi = empty(n, L), empty(n, 3), empty(n, 2)
-    row_partial, col_partial = empty(blocks, ROW_PARTIAL), empty(blocks, L * L)
     grads = (empty(n, L), empty(L, L), empty(n, K), empty(n, K), empty(F),
              empty(L, dist.shape[1]), empty(n, 2))
-    err = fn(n, features.data_ptr(), transform.data_ptr(),
-             queries.data_ptr(), keys.data_ptr(), frequencies.data_ptr(),
-             dist.data_ptr(), means.data_ptr(), radii.data_ptr(),
-             cot.data_ptr(), float(sigma_cut), *_period_args(period), blocks,
-             mapped.data_ptr(), stats.data_ptr(), gmi.data_ptr(),
-             row_partial.data_ptr(), col_partial.data_ptr(),
-             *(g.data_ptr() for g in grads), _stream(dev))
+    err = lib.pigs_aggregate_bwd(
+        n, features.data_ptr(), transform.data_ptr(), queries.data_ptr(),
+        keys.data_ptr(), frequencies.data_ptr(), dist.data_ptr(),
+        means.data_ptr(), radii.data_ptr(), cot.data_ptr(), float(sigma_cut),
+        *_period_args(period), slices, scratch.data_ptr(),
+        *(g.data_ptr() for g in grads), _stream(dev))
     if err != 0:
         raise RuntimeError(f"aggregate_bwd launch failed: cudaError {err}")
     bwd_launches += 1

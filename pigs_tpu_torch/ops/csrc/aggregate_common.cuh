@@ -1,6 +1,7 @@
 // Shared pieces of K4 (aggregate_fwd.cu) and K5 (aggregate_bwd.cu): the
 // network's widths, the feature map W_t f, the pair geometry and neighbour
-// rule, and the per-pair gate W_d emb(mu_j - mu_i) computed by one warp.
+// rule, the logit, a lane's slice of W_d for the gate W_d emb(mu_j - mu_i),
+// and the warp reductions.
 //
 // Widths are the dynamics network's (pigs_tpu/models/dynamics.py:24-34):
 // L = 16 latent features, K = 16 query/key features, F = 6 frequencies,
@@ -9,10 +10,9 @@
 // Warp layout: lane = h * 16 + l.  Lane l (of either half) owns output
 // feature l; half h owns octave h of the embedding, i.e. columns
 // [h E, (h + 1) E) of the distance transform, and keeps that row slice of
-// W_d in registers (25 floats).  For one pair the 12 lanes q < 12 of half h
-// compute sincos(f_k (scale_h rel_a)) with q = 2 k + a (the dense layout,
-// flat index k d + a) and scale_h = 1 or 2, and every lane of the half reads
-// the 12 (sin, cos) pairs by shuffles: one sincos per lane, no double-angle
+// W_d in registers (25 floats).  Both kernels stage the sincos of a chunk's
+// pairs in shared memory, sincos(f_k (scale_h rel_a)) at q = 2 k + a (the
+// dense layout, flat index k d + a) with scale_h = 1 or 2: no double-angle
 // rewrite, and the same arithmetic as the plain twin's
 // positional_embedding(2 rel).
 
@@ -105,39 +105,6 @@ struct GateRow {
   }
 };
 
-// The (sin, cos) of this lane's octave for one pair, gathered by shuffles.
-struct Trig {
-  float s[kFD];
-  float c[kFD];
-};
-
-// Called by the whole warp for one pair with displacement (rx, ry) (the
-// same values in every lane).  Fills `t` with the lane's octave and returns
-// gate_l = sum_e W_d[l, e] emb_e over both octaves, in every lane of
-// feature l.
-__device__ __forceinline__ float pair_gate(float rx, float ry,
-                                           const float* __restrict__ freqs,
-                                           const GateRow& w, int lane,
-                                           Trig& t) {
-  const int q = lane & 15;
-  const int h = lane >> 4;
-  float s = 0.0f, c = 1.0f;
-  if (q < kFD) {
-    float rel = (q & 1) ? ry : rx;
-    if (h) rel = 2.0f * rel;
-    sincosf(rel * freqs[q >> 1], &s, &c);
-  }
-  float part = w.w0;
-#pragma unroll
-  for (int p = 0; p < kFD; ++p) {
-    t.s[p] = __shfl_sync(kFull, s, (h << 4) + p);
-    t.c[p] = __shfl_sync(kFull, c, (h << 4) + p);
-    part = fmaf(w.ws[p], t.s[p], part);
-    part = fmaf(w.wc[p], t.c[p], part);
-  }
-  return part + __shfl_xor_sync(kFull, part, 16);
-}
-
 // Sum over the 16 lanes of a half (both halves get their own half's sum).
 __device__ __forceinline__ float half_sum(float x) {
 #pragma unroll
@@ -156,34 +123,6 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
   return x;
-}
-
-// Row statistics of query row i over all keys, lanes striding the keys:
-// the row max m of the neighbours' logits and the denominator
-// s = sum_j exp(logit_ij - m), each lane keeping an online (max, sum) pair
-// that the warp then combines.  m = -inf and s = 0 when row i has no
-// neighbour.
-__device__ __forceinline__ void row_stats(
-    int i, const float (&q)[kK], float mxi, float myi, float ri,
-    const float* __restrict__ keys, const float* __restrict__ means,
-    const float* __restrict__ radii, int n, float sigma_cut, int periodic,
-    float period, int lane, float& m_row, float& s_row) {
-  float m = -INFINITY, s = 0.0f;
-  for (int j = lane; j < n; j += 32) {
-    const float rx = displacement(means[2 * j], mxi, periodic, period);
-    const float ry = displacement(means[2 * j + 1], myi, periodic, period);
-    if (!neighbours(rx, ry, ri, finite_radius(radii[j]), sigma_cut, i, j))
-      continue;
-    const float lg = logit(q, keys + j * kK);
-    if (lg > m) {
-      s = s * expf(m - lg) + 1.0f;
-      m = lg;
-    } else {
-      s += expf(lg - m);
-    }
-  }
-  m_row = warp_max(m);
-  s_row = warp_sum(s > 0.0f ? s * expf(m - m_row) : 0.0f);
 }
 
 }  // namespace agg

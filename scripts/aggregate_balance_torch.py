@@ -1,16 +1,20 @@
 #!/usr/bin/env python
-"""Neighbour pairs per K4 warp at the models' real aggregation inputs.
+"""Neighbour pairs per K4 and K5 warp at the models' real aggregation inputs.
 
 K4 (pigs_tpu_torch/ops/csrc/aggregate_fwd.cu) gives one warp a query row
 and one slice of the key axis, and a warp walks its row's neighbour pairs
 in that slice one after another, so the kernel's time follows its heaviest
-warp. For each real input (the flagship's initial state, the training
-fixture's state, the NS held-out state at t=0) this prints the index range
-of the active Gaussians, the most neighbours of any row, and, at each
-grid target of `aggregate_kernel.fwd_geometry`, the most pairs any warp
-holds when the key axis is cut into runs of keys and when its 32-key
-chunks are dealt to the slices round robin (what K4 does). The neighbour
-rule is the kernel's (`kernel_mask`). Runs on the CPU in about a minute:
+warp. K5 (aggregate_bwd.cu) takes the same grid for its row pass, and for
+its column pass one key column and one slice of the rows (the 32-row
+chunks dealt alike). For each real input (the flagship's initial state,
+the training fixture's state, the NS held-out state at t=0) this prints
+the index range of the active Gaussians, the most neighbours of any row,
+and, at each grid target of `aggregate_kernel.fwd_geometry`, the most
+pairs any warp holds: K4 (and K5's row pass) when the key axis is cut into
+runs of keys and when its 32-key chunks are dealt to the slices round
+robin (what both kernels do), and K5's column pass with dealt row chunks.
+The neighbour rule is the kernel's (`kernel_mask`). Runs on the CPU in
+about a minute:
 
   python scripts/aggregate_balance_torch.py
 """
@@ -74,8 +78,12 @@ def main():
         mask = ak.kernel_mask(means, radii, 3.0, cfg.period)
         n = mask.shape[0]
         chunks = -(-n // unit)
-        per_chunk = torch.nn.functional.pad(mask, (0, chunks * unit - n)) \
-            .reshape(n, chunks, unit).sum(2)                # (rows, chunks)
+
+        def chunk_counts(m):      # (rows of m, chunks of its columns)
+            return torch.nn.functional.pad(m, (0, chunks * unit - n)) \
+                .reshape(n, chunks, unit).sum(2)
+        per_chunk = chunk_counts(mask)             # row i, key chunk c
+        per_row_chunk = chunk_counts(mask.T)       # column j, row chunk c
         active = (radii > -float("inf")).nonzero().flatten()
         print(f"{label}: n={n}, {len(active)} active in slots "
               f"{int(active.min())}-{int(active.max())}, "
@@ -88,8 +96,11 @@ def main():
                        for s in range(slices))
             dealt = max(int(per_chunk[:, s::slices].sum(1).max())
                         for s in range(slices))
+            column = max(int(per_row_chunk[:, s::slices].sum(1).max())
+                         for s in range(slices))
             print(f"  {b} blocks per SM: {slices} slices; most pairs a warp "
-                  f"holds: runs of keys {runs}, dealt chunks {dealt}",
+                  f"holds: runs of keys {runs}, dealt chunks {dealt} (K4 "
+                  f"and K5's row pass), K5's column pass {column}",
                   flush=True)
 
 
