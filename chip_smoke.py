@@ -142,10 +142,33 @@ Phases, in order; any failure exits non-zero:
                embedded in d=2) against their twins and the f64 oracle,
                timed as in 8; (e) a 100-iteration block's host time and a
                profile of 5 dynamics iterations.
+ 13. ns-data   the NS data pipeline and the fit-to-target initializer
+               from artifacts/fit_torch.npz: (a) the native .npy reader
+               loads (g++ build under build/) and load_fno reads a file
+               this phase writes as np.load does, transposed; (b)
+               generate_fno on the fixture's JAX draws regenerates the 8
+               trajectories x 51 frames of artifacts/ns_data_8traj.npz
+               within NS_REGEN_TOL (max abs; the worst frame and the time
+               printed); (c) the fixture's curl-fit block (1024 samples x
+               400 Gaussians, order 1, c=2, period 2) on its injected draws
+               in float32 through K1/K2 against the JAX float64 block
+               within FIT_BLOCK_TOL, exactly 1 K1 and 1 K2 an iteration,
+               0 K3; (d) _eig_split at capacity 4096: masks equal JAX's,
+               the fresh rows' moments zero; (e) fit_fno_trajectory of
+               trajectory 7 at full width (nx 20, 2000 iterations, seed
+               8): exactly 2000 K1 and 2000 K2, t=0 rel-L2 <= FIT_T0_TOL,
+               and phase 9's NS network rolled out from that fit, mean
+               rel-L2 in PORT_FIT_BAND; scripts/initialize_torch.py
+               gaussian at capacity 4096 for INIT_SMOKE_ITERS iterations:
+               exact launch counts, finite and falling block losses; (f) K1
+               and K2 at the curl fit's shape and the gaussian mode's
+               (1024x4096 order 0, 2500 active), K1 at its 128x128 render
+               (16384x4096), against their twins and the f64 oracle, timed
+               as in 8; (g) a profile of 5 curl-fit iterations.
 
 The line before the card's is the kernels line: per kernel its launches
 (per path, per training step, per NS training step, per rollout step, per
-no-MLP iteration),
+no-MLP iteration, per curl-fit iteration),
 errors, device, graph, call and plain times and bounds by shape, and
 library_ms (null: no single PyTorch call computes any of these functions).
 
@@ -172,6 +195,7 @@ NS_DATA = os.path.join(ROOT, "artifacts", "ns_data_8traj.npz")
 NS_TRAIN_FIXTURE = os.path.join(ROOT, "artifacts",
                                 "ns_vorttrain_train_torch.npz")
 NO_MLP_FIXTURE = os.path.join(ROOT, "artifacts", "no_mlp_torch.npz")
+FIT_FIXTURE = os.path.join(ROOT, "artifacts", "fit_torch.npz")
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 PERF_SUITE_SIZES = (512, 1664, 4096, 8192)  # benchmarks/perf_suite.py
 
@@ -192,6 +216,21 @@ NO_MLP_BLOCK_TOL = {"loss": 3.9e-5, "params": 4.5e-6, "grad_acc": 8.4e-5,
 NO_MLP_2D_STEP_TOL = 0.01   # 2-D Burgers steps 1-3 vs FD (JAX: 0.0021-0.0044)
 NO_MLP_1D_IC_TOL = 0.05     # 1-D IC fit vs exp(-2 x^2) (tests/test_numerical.py)
 NO_MLP_1D_STEP_TOL = 0.02   # 1-D steps 1-3 vs FD (JAX: 0.0023-0.0053)
+# generate_fno on JAX's draws vs the committed ns_data_8traj.npz, max abs
+# over every frame: twice the port's float32 CPU run's 8.47e-4 (trajectory
+# 1, frame 50; frames 0-3 8.0e-5).
+NS_REGEN_TOL = 1.7e-3
+# The fit fixture's curl-fit block in float32 vs JAX float64: twice what
+# the port's float32 plain path reaches on the CPU against the same fixture
+# with 2 threads (tests/test_torch_fit.py prints those errors; 8 threads
+# give the same).
+FIT_BLOCK_TOL = {"loss": 2.5e-6, "params": 2.2e-5, "mu": 5.0e-5,
+                 "nu": 2.9e-6, "last_grad": 4.6e-5}
+FIT_T0_TOL = 0.06           # the port's curl fit of trajectory 7 at t=0
+# The NS rollout from the port's own fit of trajectory 7: the committed
+# fit's 0.257639 +- 0.03 (JAX fits from three seeds moved it by ~0.013).
+PORT_FIT_BAND = (0.228, 0.288)
+INIT_SMOKE_ITERS = 300      # initialize_torch.py gaussian: three blocks
 
 DEVICE_RUNS = 20         # launches in one profiled window (device_ms)
 GRAPH_LAUNCHES = 100     # raw launches captured in one CUDA graph (graph_ms)
@@ -1096,7 +1135,7 @@ def ns_phase(dev, mk, ak, card) -> dict:
     return {"cfg": cfg, "network": network, "state0": state0,
             "state25": state25, "counts": counts, "ms": ms,
             "mean_rel_l2": metrics["mean_rel_norm"], "k1_times": k1_times,
-            "profile": profile, "steps": steps}
+            "profile": profile, "steps": steps, "fixture": fix}
 
 
 def unpack_conics(packed):
@@ -1859,6 +1898,296 @@ def no_mlp_phase(dev, mk, ak, card) -> dict:
     return out
 
 
+def fit_block_inputs(cfg, data, dev, iters=None):
+    """The fit fixture's curl-fit block on ``dev``: ``(params, opt_state,
+    active, draws, target)`` in float32, ``iters`` of its draws (all by
+    default)."""
+    import torch
+
+    from pigs_tpu_torch.convert import (fit_adam_arrays, fit_adam_from_optax,
+                                        fit_params_from_jax, no_mlp_arrays)
+    from pigs_tpu_torch.train import fit as tf
+    kw = dict(device=dev, dtype=torch.float32)
+    params = tf.RawParams(*(x.requires_grad_() for x in fit_params_from_jax(
+        no_mlp_arrays(data, "start"), **kw)))
+    opt = fit_adam_from_optax(fit_adam_arrays(data, "start_adam"), **kw)
+    draws = torch.tensor(data["draws"][slice(None, iters)], **kw)
+    target = tf.image_target(torch.tensor(data["frame"], **kw))
+    return (params, opt, torch.tensor(data["start_active"], device=dev),
+            draws, target)
+
+
+def fit_block_errors(cfg, data, dev) -> dict:
+    """Run the fit fixture's curl-fit block in float32 on ``dev``; its
+    errors against the JAX float64 block (norm-relative; the largest over
+    the fields or the four Adams)."""
+    import torch
+
+    from pigs_tpu_torch.convert import fit_adam_arrays, no_mlp_arrays
+    from pigs_tpu_torch.train import fit as tf
+    params, opt, active, draws, target = fit_block_inputs(cfg, data, dev)
+    params, opt, loss, grad = tf._fit_block(cfg, target, params, opt, active,
+                                            draws)
+    groups = fit_adam_arrays(data, "block_adam")
+    check(all(int(s.count) == int(c) for s, (_, _, c) in zip(opt, groups)),
+          f"fit block Adam counts {[int(s.count) for s in opt]}")
+    return {"loss": abs(loss.item() - float(data["block_loss"]))
+            / abs(float(data["block_loss"])),
+            "params": max(rel_err(a.detach().cpu(), torch.tensor(b))
+                          for a, b in zip(params, no_mlp_arrays(data, "block"))),
+            "mu": max(rel_err(s.mu[0].cpu(), torch.tensor(m))
+                      for s, (m, _, _) in zip(opt, groups)),
+            "nu": max(rel_err(s.nu[0].cpu(), torch.tensor(n))
+                      for s, (_, n, _) in zip(opt, groups)),
+            "last_grad": rel_err(grad.cpu(),
+                                 torch.tensor(data["block_last_grad"]))}
+
+
+def fit_split_check(cfg, data, dev) -> tuple:
+    """``_eig_split`` on the fixture's full-width state in float32 on
+    ``dev``: (masks equal JAX's, the fresh rows' moments all zero, the
+    number of children)."""
+    import torch
+
+    from pigs_tpu_torch.convert import (fit_adam_arrays, fit_adam_from_optax,
+                                        fit_params_from_jax, no_mlp_arrays)
+    from pigs_tpu_torch.train import fit as tf
+    kw = dict(device=dev, dtype=torch.float32)
+    active = torch.tensor(data["split_in_active"], device=dev)
+    params = fit_params_from_jax(no_mlp_arrays(data, "split_in"), **kw)
+    _, opt, new = tf._eig_split(
+        cfg, params, fit_adam_from_optax(fit_adam_arrays(data, "split_in_adam"),
+                                         **kw), active,
+        torch.tensor(data["split_in_last_grad"], **kw))
+    keep = ((torch.linalg.vector_norm(params.values, dim=-1) > 0.01)
+            & (torch.exp(params.raw_scaling).sum(-1) < 0.2) & active)
+    fresh = (new & ~keep) | (active & ~keep)
+    same = bool((new.cpu().numpy() == data["split_active"]).all())
+    zero = all(bool((m[0][fresh] == 0).all()) for s in opt
+               for m in (s.mu, s.nu))
+    return same, zero, int(new.sum() - keep.sum())
+
+
+def load_script(name: str):
+    """A script of ``scripts/`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def ns_data_phase(dev, mk, ak, card, ns) -> dict:
+    """Phase 13: the NS data pipeline and the fit-to-target initializer on
+    the card (see the module docstring); ``ns`` is phase 9's result (the NS
+    config and EMA network)."""
+    import numpy as np
+    import torch
+
+    from pigs_tpu_torch.convert import load_fit_fixture
+    from pigs_tpu_torch.native import NpyFile, get_lib
+    from pigs_tpu_torch.train import fit as tf
+    from pigs_tpu_torch.train.ns_data import (fit_config, fit_fno_trajectory,
+                                              generate_fno, load_fno)
+    from pigs_tpu_torch.train.pn import (NSDataset, rollout_metrics,
+                                         rollout_vorticity)
+    from pigs_tpu_torch.utils.sampling import image_samples
+    cfg, split_cfg, data = load_fit_fixture(FIT_FIXTURE)
+    out = {"counts": {}, "k1_times": {}, "k2_times": {}, "errs": [],
+           "berrs": []}
+    os.makedirs(SCRATCH, exist_ok=True)
+    with np.load(NS_DATA) as z:
+        committed = z["frames"]                   # (8, 64, 64, 51)
+
+    # (a) the native reader.
+    check(get_lib() is not None, "the native library (g++ build of "
+          "pigs_tpu_torch/native/npy_loader.cc) does not load")
+    small = os.path.join(SCRATCH, "fno_small.npy")
+    raw = np.ascontiguousarray(committed[:3].transpose(3, 1, 2, 0))
+    np.save(small, raw)
+    f = NpyFile(small)
+    native = f.native
+    f.close()
+    same = np.array_equal(load_fno(small), np.transpose(raw, (3, 1, 2, 0)))
+    print(f"[ns-data] native library loaded; NpyFile native: {native}; "
+          f"load_fno of a {raw.shape} .npy equals np.load transposed: {same}",
+          flush=True)
+    check(native and same, "the native .npy reader")
+
+    # (b) regenerate the committed trajectories from JAX's draws.
+    fno = os.path.join(SCRATCH, "ns_fno.npy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_fno(fno, n_traj=8, res=64, steps=50, dt=0.1, nu=1e-3, seed=1,
+                 log_fn=lambda *_: None, device=dev,
+                 noise=torch.tensor(data["noise"]))
+    out["generate_s"] = time.perf_counter() - t0
+    regen = load_fno(fno)                         # (8, 64, 64, 51)
+    check(regen.shape == committed.shape, f"regenerated {regen.shape}")
+    err = np.abs(regen - committed).max(axis=(1, 2))   # (8, 51)
+    worst = np.unravel_index(int(np.argmax(err)), err.shape)
+    out["regen_max_abs"] = float(err.max())
+    print(f"[ns-data] generate_fno on JAX's draws: 8 trajectories x 51 "
+          f"frames in {out['generate_s']:.2f} s; max abs vs "
+          f"ns_data_8traj.npz {err.max():.3e} (trajectory {worst[0]}, frame "
+          f"{worst[1]}; limit {NS_REGEN_TOL:.1e}), frames 0-3 "
+          f"{err[:, :4].max():.3e}; {card}", flush=True)
+    check(err.max() <= NS_REGEN_TOL,
+          f"regenerated frames {err.max():.3e} > {NS_REGEN_TOL}")
+
+    # (c) the fixture's curl-fit block against JAX float64, counted.
+    iters = out["iters"] = cfg.block_iters
+    reset_counts(mk, ak)
+    errs = fit_block_errors(cfg, data, dev)
+    torch.cuda.synchronize()
+    counts = out["counts"]["fit_block"] = read_counts(mk, ak)
+    want = (iters, iters, 0, 0, 0)
+    print(f"[ns-data] fixture curl-fit block ({iters} iterations, 1024 "
+          f"samples x 400 Gaussians, order 1 c=2 periodic, float32 through "
+          f"K1/K2) vs JAX float64: " + ", ".join(
+              f"{k} {v:.3e} (tol {FIT_BLOCK_TOL[k]:.1e})"
+              for k, v in errs.items())
+          + f"; launches (K1-K5) {counts}, expected {want}", flush=True)
+    check(counts == want, f"fit block launches {counts} != {want}")
+    for k, e in errs.items():
+        check(e <= FIT_BLOCK_TOL[k],
+              f"fit block {k} vs JAX f64 {e:.3e} > {FIT_BLOCK_TOL[k]}")
+    out["block_errs"] = errs
+
+    # (d) _eig_split at full width.
+    same, zero, children = fit_split_check(split_cfg, data, dev)
+    print(f"[ns-data] _eig_split at capacity {split_cfg.capacity}: "
+          f"{children} children; masks equal JAX's: {same}; fresh moments "
+          f"zero: {zero}", flush=True)
+    check(same and zero and children > 0, "fit _eig_split")
+
+    # (e) the port's own curl fit of trajectory 7, then the NS rollout from
+    # it.
+    traj = int(data["config_traj"])
+    full = fit_config()
+    reset_counts(mk, ak)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means, u, scaling, transforms, loss = fit_fno_trajectory(
+        committed[traj, :, :, 0], nx=full.nx, iters=full.iters,
+        seed=int(data["config_seed"]), device=dev)
+    secs = out["fit_s"] = time.perf_counter() - t0
+    counts = out["counts"]["port_fit"] = read_counts(mk, ak)
+    want = (full.iters, full.iters, 0, 0, 0)
+    print(f"[ns-data] fit_fno_trajectory (trajectory {traj}, nx {full.nx}, "
+          f"{full.iters} iterations, seed {int(data['config_seed'])}): final "
+          f"block loss {loss:.6f}, {secs:.2f} s ({full.iters / secs:.1f} "
+          f"iterations/s); launches (K1-K5) {counts}, expected {want}; "
+          f"{card}", flush=True)
+    check(counts == want, f"port fit launches {counts} != {want}")
+    ds = NSDataset.load(NS_DATA, device=dev)
+    fields = [x.clone() for x in ds[:4]]
+    for field, new in zip(fields, (means, u, scaling, transforms)):
+        field[traj] = torch.tensor(new, device=dev)
+    ds = NSDataset(*fields, ds.frames)
+    ncfg, network, fix = ns["cfg"], ns["network"], ns["fixture"]
+    frames = rollout_vorticity(ncfg, network, ds.state_for(ncfg, traj),
+                               ns["steps"], 64).cpu().numpy()
+    gt = committed[traj].transpose(2, 0, 1)
+    check(bool(np.isfinite(frames).all()), "port-fit rollout not finite")
+    mean = rollout_metrics(frames, gt)["mean_rel_norm"]
+    t0_err = rollout_metrics(frames[:1], gt[:1])["mean_rel_norm"]
+    out.update(port_fit_t0_rel_l2=t0_err, port_fit_mean_rel_l2=mean,
+               port_fit_loss=loss)
+    lo, hi = PORT_FIT_BAND
+    print(f"[ns-data] port fit: t=0 rel-L2 {t0_err:.4f} (limit "
+          f"{FIT_T0_TOL}; the committed fit {float(fix['jax_t0_rel_l2']):.4f}"
+          f"); NS rollout mean rel-L2 {mean:.6f} (band [{lo}, {hi}]; the "
+          f"committed fit {float(fix['jax_mean_rel_l2']):.6f})", flush=True)
+    check(t0_err <= FIT_T0_TOL, f"port fit t=0 rel-L2 {t0_err:.4f}")
+    check(lo <= mean <= hi, f"port-fit rollout mean rel-L2 {mean:.6f} "
+          f"outside [{lo}, {hi}]")
+
+    # initialize_torch.py's gaussian mode at full width, a few blocks.
+    init_out = os.path.join(SCRATCH, "initialize")
+    init = tf.FitConfig(iters=INIT_SMOKE_ITERS)
+    reset_counts(mk, ak)
+    t0 = time.perf_counter()
+    load_script("initialize_torch").main(
+        ["gaussian", "--iters", str(init.iters), "--out", init_out,
+         "--device", str(dev)])
+    torch.cuda.synchronize()
+    out["initialize_s"] = time.perf_counter() - t0
+    counts = out["counts"]["initialize"] = read_counts(mk, ak)
+    want = (init.iters + 1, init.iters, 0, 0, 0)
+    with np.load(os.path.join(init_out, "fit.npz")) as z:
+        res = {k: z[k] for k in z.files}
+    losses = res["losses"]
+    print(f"[ns-data] initialize_torch.py gaussian, {init.iters} iterations "
+          f"at capacity {init.capacity}: block losses "
+          + " ".join(f"{x:.3e}" for x in losses)
+          + f", {int(res['active'].sum())} active, {out['initialize_s']:.2f} "
+          f"s; launches (K1-K5) {counts}, expected {want} (the last K1 the "
+          f"128x128 render)", flush=True)
+    check(counts == want, f"initialize launches {counts} != {want}")
+    check(bool(np.isfinite(losses).all() and np.isfinite(res["render"]).all())
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"initialize losses {losses}")
+
+    # (f) K1/K2 at the slice's shapes: the twin and the f64 oracle, bitwise
+    # determinism, then timed as in phase 8.
+    gen = torch.Generator().manual_seed(13)
+    kw = dict(device=dev, dtype=torch.float32)
+    fc = tf.FitConfig(d=2, curl=True, periodic=True, tanh_means=False)
+    port = tf.RawParams(torch.tensor(means, **kw), torch.tensor(u, **kw),
+                        torch.log(torch.tensor(scaling, **kw)),
+                        torch.tensor(transforms, **kw))
+    init_params = tf.RawParams(*(torch.tensor(res[k], **kw) for k in (
+        "raw_means", "values", "raw_scaling", "transforms")))
+    init_active = torch.tensor(res["active"], device=dev)
+    with torch.no_grad():
+        cm, cc, cv = tf._concrete(fc, port)
+        im, ic, iv = tf._concrete(init, init_params)
+    smp = torch.tensor(data["draws"][0], **kw) * 2.0 - 1.0
+    n_fit, n_init = cm.shape[0], im.shape[0]
+    render = image_samples(128, device=dev)
+    shapes = {
+        f"curl fit 1024x{n_fit} order 1 c=2 periodic (1 K1, 1 K2 an "
+        f"iteration)": (cm, cc, cv, smp, 1, torch.ones(n_fit, dtype=torch.bool,
+                                                       device=dev), 2.0, True),
+        f"initialize 1024x{n_init} order 0, {int(init_active.sum())} active "
+        f"(1 K1, 1 K2 an iteration)": (im, ic, iv, smp, 0, init_active, None,
+                                        True),
+        f"initialize render {render.shape[0]}x{n_init} order 0":
+            (im, ic, iv, render, 0, init_active, None, False),
+    }
+    for label, (mu, con, val, x, order, mask, period, grad) in shapes.items():
+        with torch.inference_mode():
+            out["errs"].append(compare_case(label, mu, con, val, x, order,
+                                            mask, period, mk))
+            out["k1_times"][label] = time_k1(label, mu, con, val, x, order,
+                                             mask, period, mk, card)
+        if not grad:
+            continue
+        out["berrs"].append(compare_backward(label, mu, con, val, x, order,
+                                             mask, period, mk, gen))
+        with torch.inference_mode():
+            packed = (mu.contiguous(), mk.pack_conics(con).contiguous(),
+                      (val * mask.float()[:, None]).contiguous())
+            out["k2_times"][label] = time_k23(
+                label, packed, x, order, mk, gen, card, period=period,
+                with_k3=False)["mixture_bwd_gauss"]
+
+    # (g) 5 curl-fit iterations: a profile.
+    five = fit_block_inputs(cfg, data, dev, iters=5)
+    tf._fit_block(cfg, *five[4:], *five[:3], five[3])
+    five = fit_block_inputs(cfg, data, dev, iters=5)
+    out["profile"] = profile_ms(
+        lambda: tf._fit_block(cfg, five[4], *five[:3], five[3]), 5,
+        "curl-fit iterations", card)
+    print(f"[times] curl fit of {full.iters} iterations: {out['fit_s']:.2f} "
+          f"s, {full.iters / out['fit_s']:.1f} iterations/s "
+          f"({1e3 * out['fit_s'] / full.iters:.3f} ms an iteration, host "
+          f"clock, one sync a block; {card})", flush=True)
+    return out
+
+
 def describe_times(times) -> str:
     return "; ".join(f"{impl} fwd {times[(impl, 'fwd')]:.4f} ms, fwd+bwd "
                      f"{times[(impl, 'bwd')]:.4f} ms"
@@ -1876,7 +2205,7 @@ def run() -> tuple:
         raise SmokeFailure(f"pigs_tpu_torch/ not found beside {__file__}: run "
                            "from a checkout of the repo")
     for path in (FIXTURE, TRAIN_FIXTURE, NS_FIXTURE, NS_DATA,
-                 NS_TRAIN_FIXTURE, NO_MLP_FIXTURE):
+                 NS_TRAIN_FIXTURE, NO_MLP_FIXTURE, FIT_FIXTURE):
         check(os.path.exists(path), f"fixture {path} not found")
     sys.path.insert(0, ROOT)
 
@@ -2264,11 +2593,16 @@ def run() -> tuple:
     k1_abs = max([k1_abs] + [e["abs"] for e in nmp["errs"]])
     bwd_abs = max([bwd_abs] + [e["abs"] for e in nmp["berrs"]])
 
-    times["mixture_fwd"].update(ns["k1_times"])
-    times["mixture_fwd"].update(nst["k1_times"])
-    times["mixture_fwd"].update(nmp["k1_times"])
-    times["mixture_bwd_gauss"].update(nst["k2_times"])
-    times["mixture_bwd_gauss"].update(nmp["k2_times"])
+    # 13. the NS data pipeline and the fit-to-target initializer, counted
+    nsd = ns_data_phase(dev, mk, ak, card, ns)
+    counts.update(nsd["counts"])
+    k1_abs = max([k1_abs] + [e["abs"] for e in nsd["errs"]])
+    bwd_abs = max([bwd_abs] + [e["abs"] for e in nsd["berrs"]])
+
+    for phase in (ns, nst, nmp, nsd):
+        times["mixture_fwd"].update(phase["k1_times"])
+    for phase in (nst, nmp, nsd):
+        times["mixture_bwd_gauss"].update(phase["k2_times"])
     times.update(agg["kernel_times"])
     kernels = []
     for i, (name, source, line, max_abs) in enumerate((
@@ -2304,8 +2638,11 @@ def run() -> tuple:
                 "ns": counts["ns"][i] / ns["steps"]},
             "launches_per_no_mlp_iteration":
                 counts["no_mlp_block"][i] / nmp["iters"],
+            "launches_per_fit_iteration":
+                counts["fit_block"][i] / nsd["iters"],
             "on_main_path": any(counts[p][i] for p in (
-                "rollout", "epoch", "ns", "ns_epoch", "no_mlp_block")),
+                "rollout", "epoch", "ns", "ns_epoch", "no_mlp_block",
+                "fit_block")),
             "max_abs_err": max_abs,
             "timed": "ms (device), call_ms, plain_ms and bound_ms sum the "
                      "shapes of the *_by_shape fields",
@@ -2344,6 +2681,8 @@ def run() -> tuple:
                 nst["profile"][name]["device_ms_per_step"]
             row["device_ms_per_no_mlp_iteration"] = \
                 nmp["profile"][name]["device_ms_per_step"]
+            row["device_ms_per_fit_iteration"] = \
+                nsd["profile"][name]["device_ms_per_step"]
         if i == 3:
             row["factored_device_ms_by_shape"] = col("factored_device_ms")
             row["factored_note"] = (
@@ -2375,7 +2714,11 @@ def run() -> tuple:
             "no_mlp": {k: nmp[k] for k in (
                 "block_errs", "burgers_2d_rel_l2", "burgers_2d_s",
                 "burgers_2d_iters", "burgers_1d_rel_l2", "burgers_1d_s",
-                "wave_2d_s", "block_ms")}}, card
+                "wave_2d_s", "block_ms")},
+            "ns_data": {k: nsd[k] for k in (
+                "generate_s", "regen_max_abs", "block_errs", "fit_s",
+                "port_fit_loss", "port_fit_t0_rel_l2", "port_fit_mean_rel_l2",
+                "initialize_s")}}, card
 
 
 def main() -> int:

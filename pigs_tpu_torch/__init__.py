@@ -6,7 +6,8 @@ the parity tests compare like with like.  The package imports ``torch`` and
 numpy only; the JAX package is the reference it is tested against.
 
 Layer map (the slices so far: PN training and rollout of the Burgers
-flagship, Navier-Stokes training and rollout, the no-MLP direct solver):
+flagship, Navier-Stokes training and rollout, the no-MLP direct solver, the
+NS data pipeline and the fit-to-target initializer):
 
   ops       mixture evaluation (CUDA kernels K1 forward, K2/K3 backward, and
             their plain twins), dense oracle, neighbour aggregation (plain
@@ -17,7 +18,11 @@ flagship, Navier-Stokes training and rollout, the no-MLP direct solver):
             step, sampling, losses, adaptive split, randomized ICs
   train     training (optax-style Adam, epochs, curriculum, EMA,
             checkpoints), rollout and its metrics, the NS dataset and the
-            vorticity rollout; the no-MLP direct solver
+            vorticity rollout; the no-MLP direct solver; the fit-to-target
+            initializer and the NS data pipeline (generate, curl-fit,
+            convert)
+  native    mmap .npy reader and row prefetcher (C++ built by g++ under
+            build/, host code)
   utils     samplers, FD and spectral reference solvers, the card's name
   convert   flax parameter trees, no-MLP parameters and optax Adam
             states -> torch

@@ -18,7 +18,10 @@ the params, so they go through the same map (kernels transposed); its
 ``count`` is the step count.
 
 The no-MLP solver's ``RawParams`` and their Adam state carry across field
-by field (``no_mlp_params_from_jax``, ``no_mlp_adam_from_optax``).
+by field (``no_mlp_params_from_jax``, ``no_mlp_adam_from_optax``), and so
+do the fit-to-target initializer's (``fit_params_from_jax``;
+``fit_adam_from_optax`` takes the four Adam states of its
+``optax.multi_transform``, one per field).
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import torch
 __all__ = ["flax_to_torch_name", "torch_to_flax_name", "params_from_flax",
            "params_to_flax", "adam_from_flax", "adam_to_flax", "load_fixture",
            "load_train_fixture", "no_mlp_params_from_jax",
-           "no_mlp_adam_from_optax", "no_mlp_arrays", "load_no_mlp_fixture"]
+           "no_mlp_adam_from_optax", "no_mlp_arrays", "load_no_mlp_fixture",
+           "fit_params_from_jax", "fit_adam_from_optax", "fit_adam_arrays",
+           "load_fit_fixture"]
 
 _RAW = re.compile(r"^(distance_transform|transform)_(\d+)$")
 
@@ -249,6 +254,58 @@ def load_no_mlp_fixture(path: str, dtype=torch.float32):
             "warm_up_blocks", "min_keep", "active_sampling",
             "sampling_inflate", "lr_min")})
     return cfg, int(data["config_densify_every"]), data
+
+
+def fit_params_from_jax(params: Sequence, device=None, dtype=None):
+    """The JAX fit's ``RawParams`` (or its four arrays in field order) ->
+    the port's, on ``device`` in ``dtype``; the fit shares the no-MLP
+    solver's RawParams."""
+    return no_mlp_params_from_jax(params, device, dtype)
+
+
+FIT_GROUPS = ("means", "values", "scaling", "transforms")
+
+
+def fit_adam_from_optax(groups: Sequence, device=None, dtype=None):
+    """The fit's ``optax.multi_transform`` state, given as its four
+    ``ScaleByAdamState``s in RawParams field order, each ``(mu, nu,
+    count)`` of that group's one field as numpy -> a
+    :class:`pigs_tpu_torch.train.fit.FitOptState` (each group keeps its
+    count)."""
+    from pigs_tpu_torch.train.fit import FitOptState
+    from pigs_tpu_torch.train.optim import AdamState
+    return FitOptState(*(
+        AdamState(mu=[torch.tensor(np.asarray(mu), dtype=dtype,
+                                   device=device)],
+                  nu=[torch.tensor(np.asarray(nu), dtype=dtype,
+                                   device=device)],
+                  count=torch.tensor(int(np.asarray(count)),
+                                     dtype=torch.int32, device=device))
+        for mu, nu, count in groups))
+
+
+def fit_adam_arrays(data: dict, prefix: str) -> list:
+    """The four ``(mu, nu, count)`` a fit fixture stores under
+    ``prefix/<group>_{mu,nu,count}``, in RawParams field order."""
+    return [tuple(data[f"{prefix}/{g}_{k}"] for k in ("mu", "nu", "count"))
+            for g in FIT_GROUPS]
+
+
+def load_fit_fixture(path: str, dtype=torch.float32):
+    """Load the fit fixture: ``(cfg, split_cfg, data)``, the curl fit's
+    ``FitConfig`` and the split state's, both in ``dtype``, and the arrays
+    as numpy (see ``scripts/export_torch_fixture.py --kind fit``; its
+    RawParams under ``prefix/<field>``, read with :func:`no_mlp_arrays`)."""
+    from pigs_tpu_torch.train.fit import FitConfig
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+
+    def config(prefix):
+        return FitConfig(dtype=dtype, **{
+            f: data[f"{prefix}_{f}"].item() for f in (
+                "d", "nx", "capacity", "n_samples", "block_iters", "iters",
+                "split_every_blocks", "tanh_means", "curl", "periodic")})
+    return config("config"), config("split_config"), data
 
 
 def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -114,6 +114,42 @@ values, raw_scaling, transforms):
                         (five above the count the criterion keeps, so its
                         fallback fires)
 
+``--kind fit`` exports the fit-to-target initializer (``pigs_tpu.train.
+fit``) and the NS data pipeline (``pigs_tpu.train.ns_data``), all from the
+JAX package on the CPU.  Trajectory 7's frame 0 of
+artifacts/ns_data_8traj.npz is curl-fitted in ``fit_fno_trajectory``'s
+config (nx 20, capacity 400, 1024 samples, periodic) from PRNGKey(8), the
+key ``convert_fno(seed=1)`` gives trajectory 7, for one block in float32;
+the next block then runs on its float32 draws in float64 arithmetic.  A
+``sinusoid_target`` fit at ``scripts/initialize.py``'s widths (nx 50,
+capacity 4096) runs one block of SPLIT_ITERS iterations in float32 from
+PRNGKey(0) and is split once: 315 Gaussians are dropped and 98 split.  (A
+``gaussian_pair_target`` fit splits none: its last raw_means gradients
+stay under the split's 5e-4 threshold.)  It
+writes (``<prefix>/<field>`` a RawParams field, ``<prefix>/<group>_mu``,
+``_nu``, ``_count`` one of the four Adams of the fit's multi_transform,
+groups means, values, scaling, transforms):
+
+  config_*, split_config_*  the two FitConfigs (d, nx, capacity, n_samples,
+                        block_iters, iters, split_every_blocks, tanh_means,
+                        curl, periodic); config_traj, config_seed
+  frame                 (64, 64) the fitted vorticity frame, [y, x]
+  start/..., start_active, start_adam/...
+                        the curl fit after its first block, float32
+  draws                 (FIT_BLOCK_ITERS, 1024, 2) the second block's U[0, 1)
+                        draws, split from its key as _fit_block splits it
+                        (jax_fit_draws), float32
+  block_loss, block/..., block_adam/..., block_last_grad
+                        that block in float64: its mean loss, parameters,
+                        Adam states and last raw_means gradient
+  split_in/..., split_in_active, split_in_adam/..., split_in_last_grad
+                        the sinusoid fit's state before the split, float32
+  split/..., split_active, split_adam/...
+                        _eig_split's output (float32)
+  noise                 (8, 128, 128) the float32 normal draws of
+                        generate_fno(seed=1) (its key-split sequence): the
+                        white noise the committed dataset was solved from
+
 The port (pigs_tpu_torch) loads these files on a machine without JAX.
 
 Examples:
@@ -125,6 +161,7 @@ Examples:
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns-train
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind no-mlp
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind fit
 """
 
 import argparse
@@ -779,11 +816,157 @@ def export_no_mlp(out: str):
     print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 
+FIT_TRAJ = 7            # the NS checkpoint's held-out trajectory
+FIT_SEED = 1 + FIT_TRAJ  # convert_fno(seed=1) fits trajectory i from 1 + i
+FIT_BLOCK_ITERS = 100   # the fixture block's iterations (a full block)
+SPLIT_ITERS = 20        # iterations of the sinusoid fit before the split
+FNO_SEED, FNO_TRAJ, FNO_GEN_RES = 1, 8, 128  # validate_ns.py's defaults
+FIT_GROUPS = (("means", "raw_means"), ("values", "values"),
+              ("scaling", "raw_scaling"), ("transforms", "transforms"))
+FIT_CONFIG_FIELDS = ("d", "nx", "capacity", "n_samples", "block_iters",
+                     "iters", "split_every_blocks", "tanh_means", "curl",
+                     "periodic")
+
+
+def jax_fit_draws(cfg, key, iters=None):
+    """The U[0, 1) draws ``pigs_tpu.train.fit._fit_block`` makes from
+    ``key`` (one key per iteration), the first ``iters`` of them, as numpy
+    ``(iters, n_samples, d)``."""
+    import jax
+    import numpy as np
+    keys = jax.random.split(key, cfg.block_iters)[:iters]
+    return np.stack([np.asarray(jax.random.uniform(
+        k, (cfg.n_samples, cfg.d), cfg.dtype)) for k in keys])
+
+
+def jax_fno_noise(seed: int, n_traj: int, gen_res: int, dtype=None):
+    """The white noise ``pigs_tpu.train.ns_data.generate_fno`` draws from
+    ``seed`` (``random_vorticity``'s normal draw per trajectory, from its
+    key-split sequence), as numpy ``(n_traj, gen_res, gen_res)``; float32
+    unless ``dtype`` says otherwise."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(n_traj):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.normal(
+            sub, (gen_res, gen_res), jnp.float32 if dtype is None else dtype)))
+    return np.stack(out)
+
+
+def fit_adam_groups(opt_state) -> list:
+    """The fit's multi_transform state -> its four Adams' ``(mu, nu,
+    count)`` of their one field each, as numpy, in RawParams field order."""
+    import numpy as np
+    out = []
+    for label, field in FIT_GROUPS:
+        adam = opt_state.inner_states[label].inner_state[0]
+        out.append((np.asarray(getattr(adam.mu, field)),
+                    np.asarray(getattr(adam.nu, field)),
+                    np.asarray(adam.count)))
+    return out
+
+
+def fit_flat(prefix: str, params=None, adam=None) -> dict:
+    """RawParams and/or the Adam groups -> the fixture's keys."""
+    out = no_mlp_flat(prefix, params) if params is not None else {}
+    for (label, _), (mu, nu, count) in zip(FIT_GROUPS, adam or ()):
+        out.update({f"{prefix}_adam/{label}_mu": mu,
+                    f"{prefix}_adam/{label}_nu": nu,
+                    f"{prefix}_adam/{label}_count": count})
+    return out
+
+
+def export_fit(data_path: str, out: str):
+    """Write the fit fixture (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    # The float32 parts run without x64, as the JAX package runs them.
+    jax.config.update("jax_enable_x64", False)
+    from pigs_tpu.train import fit as jfit
+
+    with np.load(data_path) as z:
+        frame = np.asarray(z["frames"][FIT_TRAJ, :, :, 0], np.float32)
+    # fit_fno_trajectory's config and fit's key sequence.
+    cfg = jfit.FitConfig(nx=20, capacity=400, iters=2000, block_iters=100,
+                         curl=True, periodic=True, tanh_means=False)
+    target = jfit.image_target(jnp.asarray(frame))
+    params, active = jfit._init(cfg)
+    opt_state = jfit._make_optimizer(cfg).init(params)
+    key = jax.random.PRNGKey(FIT_SEED)
+    key, sub = jax.random.split(key)
+    start, opt_state, loss0, _ = jfit._fit_block(cfg, target, params,
+                                                 opt_state, active, sub)
+    print(f"curl fit block 0: mean loss {float(loss0):.6f}", flush=True)
+    key, b1 = jax.random.split(key)
+    draws = jax_fit_draws(cfg, b1, FIT_BLOCK_ITERS)
+    start_adam = fit_adam_groups(opt_state)
+
+    # The split at initialize.py's widths.
+    scfg = jfit.FitConfig(block_iters=SPLIT_ITERS)
+    sp, s_active = jfit._init(scfg)
+    s_opt = jfit._make_optimizer(scfg).init(sp)
+    _, sub = jax.random.split(jax.random.PRNGKey(0))
+    sp, s_opt, sloss, last_grad = jfit._fit_block(
+        scfg, jfit.sinusoid_target(), sp, s_opt, s_active, sub)
+    print(f"sinusoid fit, {SPLIT_ITERS} iterations: mean loss "
+          f"{float(sloss):.6f}", flush=True)
+    split_p, split_opt, split_active = jfit._eig_split(scfg, sp, s_opt,
+                                                       s_active, last_grad)
+    act, new = np.asarray(s_active), np.asarray(split_active)
+    keep = ((np.linalg.norm(np.asarray(sp.values), axis=-1) > 0.01)
+            & (np.exp(np.asarray(sp.raw_scaling)).sum(-1) < 0.2) & act)
+    # Children land in free slots in index order, dropped ones first.
+    children = int(new.sum() - keep.sum())
+    print(f"split: {int(act.sum())} active -> {int(new.sum())}, "
+          f"{int((act & ~keep).sum())} dropped, {children} children",
+          flush=True)
+    if not ((act & ~keep).any() and children):
+        raise ValueError("the split input does not both drop and split")
+    noise = jax_fno_noise(FNO_SEED, FNO_TRAJ, FNO_GEN_RES)
+
+    # The curl fit's next block: float32 draws, float64 arithmetic.
+    jax.config.update("jax_enable_x64", True)
+    f64 = jnp.float64
+    up = lambda tree: jax.tree_util.tree_map(
+        lambda x: x.astype(f64) if jnp.issubdtype(x.dtype, jnp.floating)
+        else x, tree)
+    cfg64 = cfg._replace(block_iters=FIT_BLOCK_ITERS, dtype=f64)
+    with float32_draws():
+        p64, o64, l64, g64 = jfit._fit_block(
+            cfg64, jfit.image_target(jnp.asarray(frame, f64)), up(start),
+            up(opt_state), active, b1)
+    print(f"curl fit block 1 (float64): mean loss {float(l64):.9f}",
+          flush=True)
+
+    def config(prefix, c):
+        return {f"{prefix}_{f}": np.asarray(getattr(c, f))
+                for f in FIT_CONFIG_FIELDS}
+    np.savez_compressed(
+        out, **config("config", cfg._replace(block_iters=FIT_BLOCK_ITERS)),
+        **config("split_config", scfg),
+        config_traj=FIT_TRAJ, config_seed=FIT_SEED, frame=frame,
+        **fit_flat("start", start, start_adam),
+        start_active=np.asarray(active), draws=draws,
+        block_loss=np.asarray(l64),
+        **fit_flat("block", p64, fit_adam_groups(o64)),
+        block_last_grad=np.asarray(g64),
+        **fit_flat("split_in", sp, fit_adam_groups(s_opt)),
+        split_in_active=act, split_in_last_grad=np.asarray(last_grad),
+        **fit_flat("split", split_p, fit_adam_groups(split_opt)),
+        split_active=new, noise=noise)
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--kind", choices=["rollout", "train", "ns", "ns-train",
-                                      "no-mlp"],
+                                      "no-mlp", "fit"],
                    default="rollout")
     p.add_argument("--ckpt", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_ckpt_30000 "
@@ -795,8 +978,12 @@ def main():
                         "(rollout), ..._train_torch.npz (train), "
                         "artifacts/ns_vorttrain_torch.npz (ns), "
                         "artifacts/ns_vorttrain_train_torch.npz (ns-train) "
-                        "or artifacts/no_mlp_torch.npz (no-mlp)")
+                        "artifacts/no_mlp_torch.npz (no-mlp) or "
+                        "artifacts/fit_torch.npz (fit)")
     args = p.parse_args()
+    if args.kind == "fit":
+        export_fit(args.ns_data, args.out or "artifacts/fit_torch.npz")
+        return
     if args.kind == "no-mlp":
         import jax
         jax.config.update("jax_enable_x64", True)

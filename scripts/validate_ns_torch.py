@@ -1,9 +1,20 @@
 #!/usr/bin/env python
-"""Train the Navier-Stokes model with the PyTorch port, roll it out and score
-it against the solver's vorticity frames.
+"""Make the Navier-Stokes dataset, train the model with the PyTorch port, roll
+it out and score it against the solver's vorticity frames.
 
-The train and rollout halves of scripts/validate_ns.py (its steps 3 and 4)
-for pigs_tpu_torch, on the committed dataset: PN training with the
+scripts/validate_ns.py's steps for pigs_tpu_torch.  Steps 1-2 run only
+when ``--ns-data`` does not exist: generate ``--n-traj`` trajectories with
+the spectral solver (``--steps``, ``--res``, ``--dt``, ``--nu``; white
+noise from ``--seed``, or the draws in ``--noise``) into
+``<ns-data>_fno.npy``, then curl-fit frame 0 of each (``--nx``,
+``--fit-iters``; trajectory i from seed ``--seed`` + i) into ``--ns-data``,
+printing each trajectory's final loss, the conversion's wall time and,
+where the shapes agree, the largest difference from the committed dataset
+(artifacts/ns_data_8traj.npz).  ``--noise artifacts/fit_torch.npz`` holds
+JAX's draws for seed 1, the committed dataset's.  The default
+``--ns-data`` is the committed file, so nothing is generated then.
+
+Steps 3-4 run on that dataset: PN training with the
 vorticity-reconstruction loss on every trajectory but the last, then the
 held-out trajectory's curl-fit initial state evolved with densify off, its
 vorticity w = d(u_y)/dx - d(u_x)/dy rendered at order 1 on the 64x64 pixel
@@ -21,7 +32,10 @@ fixture's epoch (20000) in ``--ckpt-dir`` and training resumes there;
 past the fixture).  The recipe flags default to results_ns_r5_vorttrain's.
 After training the EMA parameters (the raw ones without an EMA) roll out.
 
-Examples (three epochs resumed from the exported checkpoint):
+Examples (the full pipeline on JAX's draws, then the rollout only; three
+epochs resumed from the exported checkpoint):
+  python scripts/validate_ns_torch.py --ns-data build/ns_data_port.npz \
+      --n-traj 8 --noise artifacts/fit_torch.npz
   python scripts/validate_ns_torch.py --device cpu --epochs 20003 \\
       --resume-fixture artifacts/ns_vorttrain_train_torch.npz \\
       --ckpt-dir build/ns_train/checkpoints
@@ -36,6 +50,47 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+COMMITTED_NS_DATA = "artifacts/ns_data_8traj.npz"
+
+
+def make_dataset(args, device, summary):
+    """Steps 1-2: generate the FNO-format trajectories and curl-fit them
+    into ``args.ns_data``."""
+    import numpy as np
+
+    from pigs_tpu_torch.train.ns_data import convert_fno, generate_fno
+
+    fno = os.path.splitext(args.ns_data)[0] + "_fno.npy"
+    os.makedirs(os.path.dirname(fno) or ".", exist_ok=True)
+    noise = None
+    if args.noise:
+        with np.load(args.noise) as z:
+            noise = z["noise"][:args.n_traj]
+    t0 = time.perf_counter()
+    generate_fno(fno, n_traj=args.n_traj, res=args.res, steps=args.steps,
+                 dt=args.dt, nu=args.nu, seed=args.seed, device=device,
+                 noise=noise)
+    summary["generate_s"] = time.perf_counter() - t0
+    losses = []
+
+    def log_fn(msg):
+        print(msg, flush=True)
+        if msg.startswith("trajectory "):
+            losses.append(float(msg.rsplit(" ", 1)[1]))
+    t0 = time.perf_counter()
+    convert_fno(fno, args.ns_data, nx=args.nx, iters=args.fit_iters,
+                seed=args.seed, log_fn=log_fn, device=device)
+    summary["convert_s"] = time.perf_counter() - t0
+    summary["fit_final_losses"] = losses
+    print(f"curl-fit conversion: {summary['convert_s']:.1f} s", flush=True)
+    if os.path.exists(COMMITTED_NS_DATA):
+        with np.load(COMMITTED_NS_DATA) as a, np.load(args.ns_data) as b:
+            if a["frames"].shape == b["frames"].shape:
+                diff = np.abs(a["frames"] - b["frames"]).max(axis=(1, 2, 3))
+                summary["max_abs_vs_committed_frames"] = diff.tolist()
+                print("max abs vs the committed frames, by trajectory: "
+                      + " ".join(f"{d:.3e}" for d in diff), flush=True)
+
 
 def main():
     p = argparse.ArgumentParser(description=__doc__,
@@ -43,7 +98,21 @@ def main():
     p.add_argument("--fixture", default="artifacts/ns_vorttrain_torch.npz",
                    help="rollout fixture: the untrained network, the "
                         "held-out index and the JAX-CPU reference")
-    p.add_argument("--ns-data", default="artifacts/ns_data_8traj.npz")
+    p.add_argument("--ns-data", default=COMMITTED_NS_DATA,
+                   help="the NSDataset .npz; generated and converted into "
+                        "when it does not exist")
+    p.add_argument("--n-traj", type=int, default=4,
+                   help="trajectories to generate (steps 1-2 only)")
+    p.add_argument("--steps", type=int, default=50,
+                   help="solver frames per trajectory after frame 0")
+    p.add_argument("--res", type=int, default=64)
+    p.add_argument("--nu", type=float, default=1e-3)
+    p.add_argument("--nx", type=int, default=20,
+                   help="curl-fit grid edge (nx * nx Gaussians)")
+    p.add_argument("--fit-iters", type=int, default=2000)
+    p.add_argument("--noise", default=None,
+                   help=".npz whose 'noise' (n_traj, 128, 128) is the white "
+                        "noise to generate from (default: draws from --seed)")
     p.add_argument("--epochs", type=int, default=0,
                    help="train up to this epoch (0: roll out the fixture)")
     p.add_argument("--resume-fixture", default=None,
@@ -81,11 +150,17 @@ def main():
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    summary = {}
+    if not os.path.exists(args.ns_data):
+        make_dataset(args, device, summary)
     cfg, network, fixture = load_fixture(args.fixture, device=device)
     data = NSDataset.load(args.ns_data, device=device)
     index = int(fixture["config_held_out"])
+    if index >= data.means.shape[0]:
+        raise ValueError(f"{args.ns_data} holds {data.means.shape[0]} "
+                         f"trajectories; the fixture holds out trajectory "
+                         f"{index}")
     steps, res = int(fixture["config_steps"]), int(fixture["config_res"])
-    summary = {}
 
     if args.epochs > 0:
         resume = args.resume

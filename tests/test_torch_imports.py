@@ -16,7 +16,8 @@ PORT_FILES = sorted((ROOT / "pigs_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "validate_ns_torch.py",
     ROOT / "scripts" / "solve_no_mlp_torch.py",
     ROOT / "scripts" / "validate_no_mlp_2d_torch.py",
-    ROOT / "scripts" / "aggregate_balance_torch.py"]
+    ROOT / "scripts" / "aggregate_balance_torch.py",
+    ROOT / "scripts" / "initialize_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pigs_tpu")
 
 
@@ -43,7 +44,9 @@ def test_scan_sees_the_package():
     assert {"mixture_kernel.py", "aggregate_kernel.py", "model.py", "pn.py",
             "convert.py", "optim.py", "checkpoint.py", "train_torch.py",
             "validate_ns_torch.py", "fd.py", "no_mlp.py", "card.py",
-            "solve_no_mlp_torch.py", "validate_no_mlp_2d_torch.py"} <= names
+            "solve_no_mlp_torch.py", "validate_no_mlp_2d_torch.py",
+            "fit.py", "ns_data.py", "initialize_torch.py"} <= names
+    assert ROOT / "pigs_tpu_torch" / "native" / "__init__.py" in PORT_FILES
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):
