@@ -136,7 +136,15 @@ Phases, in order; any failure exits non-zero:
                1-3 <= 0.02 against the FD solution from exp(-2 x^2)) and 2-D
                WAVE with active_sampling 0.5 (IC fit + 1 step, finite), each
                with exact launch counts (an IC-fit iteration 1 K1 + 1 K2, a
-               dynamics iteration 2 K1 + 1 K2, never K3); (a) K1 and K2 at
+               dynamics iteration 2 K1 + 1 K2, never K3); the 1-D IC fit's
+               three diagnostics, each on its own line: its final params
+               rendered through K1 and the plain path (float32, float64,
+               and on the CPU) at the 201 points and at the fit's last
+               samples; the IC fit rerun with the CPU generator's draws
+               (seeds 0, 1) and CUDA seeds 1-4 beside JAX's band from
+               artifacts/no_mlp_1d_torch.npz; K1 and K2 at its state
+               (128 and 201 samples x 1024, 25 active) against the f64
+               oracle; (a) K1 and K2 at
                every no-MLP shape (1024x1024 orders 2 and 0, the 4096x1024
                render, WAVE 2048x1024 order 2 c=2, 1-D 128x1024 order 2
                embedded in d=2) against their twins and the f64 oracle,
@@ -165,6 +173,27 @@ Phases, in order; any failure exits non-zero:
                (1024x4096 order 0, 2500 active), K1 at its 128x128 render
                (16384x4096), against their twins and the f64 oracle, timed
                as in 8; (g) a profile of 5 curl-fit iterations.
+ 14. validate  (a) second-order gradients through the mixture (the JAX
+               package's outer/inner loss) at 4096x1664 order 2, at
+               16384x1664 order 1 (27.3 M pairs: the double vjp in 4
+               sample chunks) and at 1024x1024 order 2 with the samples
+               differentiated, each within 2e-4 scaled of the same double
+               backward through the float64 oracle, with exact launches:
+               1 K1 and 1 K2 (K3 only with the samples) for the inner
+               gradient, one more K2 (and K3) when the outer backward
+               passes back through the forward op; first- and
+               second-order call times and peak memory; (b)
+               scripts/validate_pn_torch.py with the flagship recipe from
+               the training fixture at its epoch (the EMA rolled out: its
+               FD frames within 1e-3 of the fixture's, the mean rel-L2
+               within 0.005 of JAX-CPU) and 3 epochs past it, with exact
+               launch counts; (c) validate_pn_torch from scratch for every
+               problem at full width (2 epochs, 10 rollout steps): finite
+               frames and scores, validate_pn.py's summary keys, exact
+               launch counts; (d) the dt=0.1 checkpoint's raw parameters
+               (artifacts/burgers_dt01_torch.npz) rolled out by
+               scripts/rollout_torch.py: 2 K1 a step, mean rel-L2 within
+               0.005 of the JAX-CPU score the fixture stores.
 
 The line before the card's is the kernels line: per kernel its launches
 (per path, per training step, per NS training step, per rollout step, per
@@ -196,6 +225,8 @@ NS_TRAIN_FIXTURE = os.path.join(ROOT, "artifacts",
                                 "ns_vorttrain_train_torch.npz")
 NO_MLP_FIXTURE = os.path.join(ROOT, "artifacts", "no_mlp_torch.npz")
 FIT_FIXTURE = os.path.join(ROOT, "artifacts", "fit_torch.npz")
+NO_MLP_1D_FIXTURE = os.path.join(ROOT, "artifacts", "no_mlp_1d_torch.npz")
+DT01_FIXTURE = os.path.join(ROOT, "artifacts", "burgers_dt01_torch.npz")
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 PERF_SUITE_SIZES = (512, 1664, 4096, 8192)  # benchmarks/perf_suite.py
 
@@ -1688,6 +1719,95 @@ def no_mlp_solve(label, cfg, n_steps, dev, mk, ak, densify_every=None):
     return traj, counts, seconds, ic + dyn
 
 
+def ic_fit_rel_l2(cfg, params, active, x):
+    """The rel-L2 of a 1-D IC fit against exp(-2 x^2) at ``x``, through
+    eval_mixture (K1 on the card) and its plain path, in float32 and
+    float64: ``{"k1", "plain", "plain64"}``."""
+    import torch
+
+    from pigs_tpu_torch.ops.mixture import eval_mixture
+    from pigs_tpu_torch.train import no_mlp as nm
+    target = torch.exp(-2.0 * x.double()[:, 0] ** 2)
+    out = {}
+    with torch.no_grad():
+        for key, impl, dtype in (("k1", "auto", torch.float32),
+                                 ("plain", "plain", torch.float32),
+                                 ("plain64", "plain", torch.float64)):
+            mu, con, val = (t.to(dtype) for t in nm.concrete(cfg, params))
+            u = eval_mixture(mu, con, val, x.to(dtype), order=0, mask=active,
+                             impl=impl).u[:, 0]
+            out[key] = rel_err(u, target)
+    return out
+
+
+def one_d_diagnostics(cfg, ic, draws, x201, dev, mk, gen) -> dict:
+    """Phase 12d's diagnostics of the 1-D IC fit, each on its own line:
+    (1) its final parameters rendered through K1 and through the plain path
+    at the 201 points, at the fit's last 128 samples and on the CPU; (2)
+    the IC fit rerun on the card with the CPU generator's draws (seeds 0
+    and 1) and with CUDA seeds 1-4 (seed 0 is the solve's), against JAX's
+    band (artifacts/no_mlp_1d_torch.npz); (3) K1 and K2 at the fit's final
+    state against the float64 oracle at 128x1024 (the fit's samples) and
+    201x1024 (the render)."""
+    import numpy as np
+    import torch
+
+    from pigs_tpu_torch.train import no_mlp as nm
+    params, active = ic["params"], ic["active"]
+    last = nm.draw_samples(cfg, draws.base[-1], params, first_step=True)
+    at201 = ic_fit_rel_l2(cfg, params, active, x201)
+    at_last = ic_fit_rel_l2(cfg, params, active, last)
+    cpu = ic_fit_rel_l2(cfg, nm.RawParams(*(p.cpu() for p in params)),
+                        active.cpu(), x201.cpu())
+    print(f"[no-mlp] 1-D diagnostic 1 (render): the IC fit's final params "
+          f"({int(active.sum())} active) at 201 points: K1 {at201['k1']:.5f}, "
+          f"plain f32 {at201['plain']:.5f}, plain f64 {at201['plain64']:.5f}, "
+          f"on the CPU (plain) {cpu['plain']:.5f}; at the fit's last "
+          f"{last.shape[0]} samples: K1 {at_last['k1']:.5f}, plain "
+          f"{at_last['plain']:.5f}", flush=True)
+
+    with np.load(NO_MLP_1D_FIXTURE) as z:
+        jax_final, jax_blocks = z["final_rel_l2"], z["block_rel_l2"][:, 10:]
+    runs = {}
+    for label, gen_ in ([(f"CPU generator seed {s}",
+                          torch.Generator().manual_seed(s)) for s in (0, 1)]
+                        + [(f"CUDA seed {s}",
+                            torch.Generator(device=dev).manual_seed(s))
+                           for s in range(1, 5)]):
+        p0, a0 = nm.init_params(cfg, dev)
+        fit, a1, loss, iters = nm.solve_timestep(cfg, p0, a0, None, gen_,
+                                                 first_step=True)
+        runs[label] = (ic_fit_rel_l2(cfg, fit, a1, x201)["k1"], loss, iters)
+    runs["CUDA seed 0"] = (at201["k1"], ic["loss"], ic["iters"])
+    print("[no-mlp] 1-D diagnostic 2 (draws): IC-fit rel-L2 at 201 points "
+          "(loss, iterations): " + "; ".join(
+              f"{k} {v[0]:.5f} ({v[1]:.2e}, {v[2]})" for k, v in runs.items())
+          + f"; JAX (seeds 0-9, fixture): where solve_timestep stops "
+          f"{jax_final.min():.5f}-{jax_final.max():.5f}, after blocks 10-50 "
+          f"median {np.median(jax_blocks):.5f}, max per seed "
+          f"{jax_blocks.max(axis=1).min():.5f}-{jax_blocks.max():.5f}",
+          flush=True)
+    check(all(np.isfinite(v[0]) for v in runs.values()),
+          "1-D diagnostic IC fits not finite")
+
+    mu, con, val = nm.concrete(cfg, params)
+    errs, berrs = [], []
+    for label, smp in (("fit's samples", last), ("render", x201)):
+        label = f"1-D IC fit {smp.shape[0]}x{cfg.capacity} order 0 ({label})"
+        with torch.inference_mode():
+            errs.append(compare_case(label, mu, con, val, smp, 0, active,
+                                     None, mk))
+        berrs.append(compare_backward(label, mu, con, val, smp, 0, active,
+                                      None, mk, gen))
+    print(f"[no-mlp] 1-D diagnostic 3 (kernels): K1 at the IC fit's state vs "
+          f"the f64 oracle {max(e['f64'] for e in errs):.3e}, K2/K3 "
+          f"{max(e['f64'] for e in berrs):.3e} (128 and 201 samples x "
+          f"{cfg.capacity}, {int(active.sum())} active)", flush=True)
+    return {"render": at201, "render_at_fit_samples": at_last,
+            "render_cpu": cpu, "fits": {k: v[0] for k, v in runs.items()},
+            "errs": errs, "berrs": berrs}
+
+
 def no_mlp_phase(dev, mk, ak, card) -> dict:
     """Phase 12: the no-MLP direct solver on the card (see the module
     docstring)."""
@@ -1794,10 +1914,17 @@ def no_mlp_phase(dev, mk, ak, card) -> dict:
     state_2d = traj[0]
 
     # 1-D Burgers, solve_no_mlp.py's defaults: IC fit + 3 steps against
-    # the FD solution from exp(-2 x^2) on 201 points.
+    # the FD solution from exp(-2 x^2) on 201 points.  The draws are kept,
+    # so that the diagnostics below see the IC fit's last samples.
     cfg1 = nm.NoMLPConfig(problem=Problem.BURGERS, d=1)
-    traj1, out["counts"]["no_mlp_burgers_1d"], secs1, n_it1 = no_mlp_solve(
-        "1-D Burgers", cfg1, 4, dev, mk, ak)
+    kept, block_draws = [], nm.block_draws
+    nm.block_draws = lambda *a, **kw: kept.append(block_draws(*a, **kw)) \
+        or kept[-1]
+    try:
+        traj1, out["counts"]["no_mlp_burgers_1d"], secs1, n_it1 = \
+            no_mlp_solve("1-D Burgers", cfg1, 4, dev, mk, ak)
+    finally:
+        nm.block_draws = block_draws
     x1 = (torch.linspace(-1, 1, 201, device=dev) * cfg1.scale).reshape(-1, 1)
     gt1 = solve_fd_1d(torch.exp(-2.0 * x1[:, 0] ** 2), cfg1.scale, cfg1.dt, 3,
                       problem="burgers", nu=cfg1.nu)
@@ -1813,6 +1940,11 @@ def no_mlp_phase(dev, mk, ak, card) -> dict:
     check(max(rel1[1:]) <= NO_MLP_1D_STEP_TOL,
           f"1-D steps 1-3 rel-L2 {max(rel1[1:]):.4f} > {NO_MLP_1D_STEP_TOL}")
     out.update(burgers_1d_rel_l2=rel1, burgers_1d_s=secs1)
+    ic_draws = kept[traj1[0]["iters"] // cfg1.block_iters - 1]
+    out["ic_1d"] = one_d_diagnostics(cfg1, traj1[0], ic_draws, x1, dev, mk,
+                                     gen=torch.Generator().manual_seed(13))
+    out["errs"] += out["ic_1d"]["errs"]
+    out["berrs"] += out["ic_1d"]["berrs"]
 
     # 2-D WAVE, the committed wave recipe: IC fit + 1 step, finite, no K3.
     cfgw = cfg._replace(problem=Problem.WAVE, dt=0.01, n_samples=2048,
@@ -2188,6 +2320,294 @@ def ns_data_phase(dev, mk, ak, card, ns) -> dict:
     return out
 
 
+def double_backward(means, conics, values, samples, order, mask, impl,
+                    diff_samples, counts=None, mk=None, ak=None):
+    """Second-order gradients through eval_mixture, the JAX package's
+    outer/inner loss (tests/test_pallas_mixture.py:197-207): inner
+    sum(u^2) + sum(f^2) with f the field of ``order``; outer the sum of
+    squares of its first-order gradients (the conic one symmetrized).
+    Returns the gradients of the outer loss with respect to means, conics,
+    values (and samples with ``diff_samples``); with ``counts`` a list,
+    appends the launch counts after the inner gradient and after the outer
+    one (the counters are reset first)."""
+    import torch
+
+    from pigs_tpu_torch.ops.mixture import eval_mixture
+    tin = [means.clone().requires_grad_(), conics.clone().requires_grad_(),
+           values.clone().requires_grad_(),
+           samples.clone().requires_grad_(diff_samples)]
+    wrt = tin if diff_samples else tin[:3]
+    if counts is not None:
+        reset_counts(mk, ak)
+    out = eval_mixture(*tin, order=order, mask=mask, impl=impl)
+    inner = (out.u ** 2).sum() + (out[order] ** 2).sum()
+    g = list(torch.autograd.grad(inner, wrt, create_graph=True))
+    if counts is not None:
+        torch.cuda.synchronize()
+        counts.append(read_counts(mk, ak))
+    g[1] = sym(g[1])
+    outer = sum((x ** 2).sum() for x in g)
+    gg = torch.autograd.grad(outer, wrt)
+    if counts is not None:
+        torch.cuda.synchronize()
+        counts.append(read_counts(mk, ak))
+    return gg
+
+
+def first_order(means, conics, values, samples, order, mask, diff_samples):
+    """The inner loss's first-order gradients through eval_mixture, as a
+    training step asks for them."""
+    import torch
+
+    from pigs_tpu_torch.ops.mixture import eval_mixture
+    tin = [means.clone().requires_grad_(), conics.clone().requires_grad_(),
+           values.clone().requires_grad_(),
+           samples.clone().requires_grad_(diff_samples)]
+    out = eval_mixture(*tin, order=order, mask=mask)
+    inner = (out.u ** 2).sum() + (out[order] ** 2).sum()
+    return torch.autograd.grad(inner, tin if diff_samples else tin[:3])
+
+
+def counted_validate(vpn, argv, pn, mk, ak):
+    """Run scripts/validate_pn_torch.py's main on ``argv``, counted; returns
+    ``(summary, launches (K1-K5), [steps of each epoch trained])``."""
+    import torch
+    steps, train_epoch = [], pn.train_epoch
+
+    def recording(*a, **kw):
+        result = train_epoch(*a, **kw)
+        steps.append(int(result[3]))
+        return result
+    pn.train_epoch = recording
+    try:
+        reset_counts(mk, ak)
+        summary = vpn.main(argv)
+        torch.cuda.synchronize()
+        return summary, read_counts(mk, ak), steps
+    finally:
+        pn.train_epoch = train_epoch
+
+
+# validate_pn.py's summary keys (scripts/validate_pn.py:159-247) by problem.
+VALIDATE_KEYS = {"problem", "epochs", "capacity", "train_s", "evo_time_s",
+                 "rollout_split", "dt", "n_samples", "ema_decay",
+                 "wave_psi_scale", "final_loss"}
+VALIDATE_SCORE_KEYS = {
+    "burgers": {"mean_rel_norm", "per_step_rel_norm"},
+    "diffusion": {"mean_rel_norm", "per_step_rel_norm"},
+    "wave": {"mean_rel_norm", "per_step_rel_norm", "mean_rel_norm_psi",
+             "per_step_rel_norm_psi"},
+    "poisson": {"mean_rel_norm", "per_step_rel_norm", "mean_rel_norm_t_end",
+                "per_step_rel_norm_t_end"},
+    "test": {"mean_abs_dy_minus_u_over_5", "per_step_dy_err",
+             "mean_y_trajectory", "mean_u_trajectory"}}
+FLAGSHIP_FLAGS = ["--dt", "0.1", "--loss-weight-floor", "0.05", "--lr", "3e-4",
+                  "--lr-min", "2e-5", "--train-timesteps", "50",
+                  "--n-samples", "4096", "--ema-decay", "0.999",
+                  "--clip-norm", "1.0", "--skip-nonfinite"]
+SECOND_ORDER_TOL = 2e-4     # tests/test_pallas_mixture.py's scaled bound
+FD_FRAMES_TOL = 1e-3        # the FD frames from the card's rendered t=0 field
+# Phase 14c's per-problem flags: the committed runs' dt (results_burgers_
+# dt01, results_diffusion_dt001, results_wave_r5_psiscale, results_poisson_
+# dt001, results_test); at validate_pn.py's default dt of 1.0 the explicit
+# FD ground truth of diffusion and wave blows up.
+SHORT_FLAGS = {"burgers": ["--dt", "0.1"], "diffusion": ["--dt", "0.01"],
+               "wave": ["--dt", "0.01", "--wave-psi-scale", "30"],
+               "poisson": ["--dt", "0.01"], "test": []}
+SHORT_EPOCHS = 2            # phase 14c: epochs from scratch per problem
+SHORT_STEPS = 10            # phase 14c: rollout steps
+
+
+def second_order_cases(ti, dev) -> dict:
+    """Phase 14a's inputs: label -> (means, conics, values, samples, order,
+    mask, samples differentiated)."""
+    import torch
+
+    from pigs_tpu_torch.models.state import covariance_of
+    gen = torch.Generator().manual_seed(14)
+    ti.reset()
+    st = ti.state
+    _, conics = covariance_of(st)
+    wide = (torch.rand((16384, 2), generator=gen) * 2.0 - 1.0).to(dev)
+    (rm, rc, rv, rs), rmask = random_mixture(gen, 1024, 1024, 1, 2, dev)
+    return {
+        "4096x1664 order 2 (collocation)":
+            (st.means, conics, st.u, ti.samples, 2, st.interior, False),
+        "16384x1664 order 1 (chunked)":
+            (st.means, conics, st.u, wide, 1, st.interior, False),
+        "1024x1024 order 2, samples differentiated":
+            (rm, rc, rv, rs, 2, rmask, True),
+    }
+
+
+def validate_phase(dev, mk, ak, card, ti, data) -> dict:
+    """Phase 14: the mixture's double backward, scripts/validate_pn_torch.py
+    and the dt=0.1 checkpoint on the card (see the module docstring).
+    ``ti`` is phase 3's TrainInputs, ``data`` the rollout fixture's
+    arrays."""
+    import numpy as np
+    import torch
+
+    from pigs_tpu_torch.train import pn
+    out = {"counts": {}, "second_order": {}}
+
+    # (a) the double backward at three shapes against the float64 oracle.
+    chunks, double_vjp = [], mk._double_vjp
+    mk._double_vjp = lambda p, *a: chunks.append(p[3].shape[0]) or \
+        double_vjp(p, *a)
+    try:
+        for label, (mu, con, val, smp, order, mask, ds) in \
+                second_order_cases(ti, dev).items():
+            m, n = smp.shape[0], mu.shape[0]
+            chunks.clear()
+            counts = []
+            got = double_backward(mu, con, val, smp, order, mask, "auto", ds,
+                                  counts, mk, ak)
+            seen = list(chunks)
+            want = double_backward(mu.double(), con.double(), val.double(),
+                                   smp.double(), order, mask, "plain", ds)
+            k3 = 1 if ds else 0
+            expect = [(1, 1, k3, 0, 0), (1, 2, 2 * k3, 0, 0)]
+            errs = []
+            for name, a, b in zip(("means", "conics", "values", "samples"),
+                                  got, want):
+                check(bool(torch.isfinite(a).all()),
+                      f"{label}: second-order {name} not finite")
+                if name == "conics":
+                    a, b = sym(a), sym(b)
+                errs.append((a.double() - b).abs().max().item()
+                            / max(1.0, b.abs().max().item()))
+            per_chunk = max(mk.SECOND_ORDER_PAIR_BUDGET // n, 1)
+            want_chunks = ([m] if m * n <= mk.SECOND_ORDER_PAIR_BUDGET else
+                           [min(per_chunk, m - i)
+                            for i in range(0, m, per_chunk)])
+            first_ms = statistics.median(host_ms(lambda: first_order(
+                mu, con, val, smp, order, mask, ds)) for _ in range(3))
+            torch.cuda.reset_peak_memory_stats(dev)
+            second_ms = statistics.median(host_ms(lambda: double_backward(
+                mu, con, val, smp, order, mask, "auto", ds)) for _ in range(3))
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            print(f"[validate] double backward {label}: {m * n / 1e6:.1f} M "
+                  f"pairs in {len(seen)} chunk(s) of {seen[0]} rows; "
+                  f"scaled max err vs the f64 oracle (means, conics, values"
+                  f"{', samples' if ds else ''}) "
+                  + " ".join(f"{e:.2e}" for e in errs)
+                  + f" (tol {SECOND_ORDER_TOL:.0e}); launches (K1-K5) after "
+                  f"the inner gradient {counts[0]}, after the outer "
+                  f"{counts[1]}; first order {first_ms:.2f} ms, second order "
+                  f"{second_ms:.2f} ms (median of 3 calls, forward included, "
+                  f"host clock with device syncs), peak memory "
+                  f"{peak:.2f} GiB; {card}", flush=True)
+            check(max(errs) <= SECOND_ORDER_TOL,
+                  f"{label}: second order vs f64 {max(errs):.3e}")
+            check(counts == expect,
+                  f"{label}: launches {counts}, expected {expect}")
+            check(seen == want_chunks,
+                  f"{label}: chunks {seen}, expected {want_chunks}")
+            out["second_order"][label] = {
+                "max_scaled_err": max(errs), "chunks": len(want_chunks),
+                "first_order_ms": first_ms, "second_order_ms": second_ms,
+                "peak_gib": peak}
+            out["counts"][f"double_backward {label}"] = counts[1]
+    finally:
+        mk._double_vjp = double_vjp
+
+    # (b) validate_pn_torch on the flagship training fixture: the EMA at the
+    # fixture's epoch, then three resumed epochs.  Each rollout() runs its
+    # 50 steps twice (warm-up, then timed), 2 K1 a step; a resumed epoch in
+    # the split regime launches 2 + 8 K1 and 2 K2 a step (phase 6).
+    vpn = load_script("validate_pn_torch")
+    run_dir = os.path.join(SCRATCH, "validate_pn")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    jax_mean = float(data["jax_mean_rel_l2"])
+    for epochs in (30000, 30003):
+        t0 = time.perf_counter()
+        summary, counts, steps = counted_validate(
+            vpn, ["--epochs", str(epochs), *FLAGSHIP_FLAGS,
+                  "--resume-fixture", TRAIN_FIXTURE, "--out", run_dir], pn,
+            mk, ak)
+        secs = time.perf_counter() - t0
+        want = (sum(2 + 8 * n for n in steps) + 200, 2 * sum(steps), 0, 0, 0)
+        fd = np.load(os.path.join(run_dir, "fd_gt_frames.npy"))
+        fd_err = float(np.abs(fd - data["fd_frames"]).max())
+        print(f"[validate] validate_pn_torch, flagship recipe, --epochs "
+              f"{epochs} from the training fixture: {len(steps)} epochs of "
+              f"{steps} steps, mean rel-L2 vs its FD {summary['mean_rel_norm']:.6f}"
+              f" (JAX-CPU {jax_mean:.6f}); its FD frames vs the fixture's max "
+              f"abs {fd_err:.3e}; launches (K1-K5) {counts}, expected {want}; "
+              f"{secs:.1f} s ({card})", flush=True)
+        check(len(steps) == epochs - 30000, f"validate --epochs {epochs}: "
+              f"{len(steps)} epochs trained")
+        check(counts == want, f"validate --epochs {epochs}: launches "
+              f"{counts} != {want}")
+        check(abs(summary["mean_rel_norm"] - jax_mean) <= MEAN_REL_L2_TOL,
+              f"validate --epochs {epochs}: mean rel-L2 "
+              f"{summary['mean_rel_norm']:.6f} vs {jax_mean:.6f}")
+        if epochs == 30000:
+            check(fd_err <= FD_FRAMES_TOL,
+                  f"validate FD frames vs the fixture's {fd_err:.3e}")
+        out["counts"][f"validate_flagship_{epochs}"] = counts
+        out[f"flagship_{epochs}_mean_rel_l2"] = summary["mean_rel_norm"]
+        out[f"flagship_{epochs}_s"] = secs
+    out["flagship_fd_max_abs"] = fd_err
+
+    # (c) every problem from scratch at full width: nx 20, the default
+    # capacity, its committed run's dt, SHORT_EPOCHS epochs (one step each this early in the
+    # curriculum: 2 + 3 K1, and 2 K2 but for TEST, whose loss reads no
+    # mixture), SHORT_STEPS rollout steps twice (2 K1 a step) and, for
+    # TEST, the law's SHORT_STEPS forward steps (1 K1 each).
+    for problem in SHORT_FLAGS:
+        pdir = os.path.join(SCRATCH, f"validate_{problem}")
+        shutil.rmtree(pdir, ignore_errors=True)
+        t0 = time.perf_counter()
+        summary, counts, steps = counted_validate(
+            vpn, ["--problem", problem, *SHORT_FLAGS[problem], "--epochs",
+                  str(SHORT_EPOCHS), "--rollout-steps", str(SHORT_STEPS),
+                  "--out", pdir], pn, mk, ak)
+        secs = time.perf_counter() - t0
+        k2 = 0 if problem == "test" else 2
+        want = (sum(2 + 3 * n for n in steps) + 4 * SHORT_STEPS
+                + (SHORT_STEPS if problem == "test" else 0),
+                k2 * sum(steps), 0, 0, 0)
+        frames = np.load(os.path.join(pdir, "rollout_frames.npy"))
+        with open(os.path.join(pdir, "summary.json")) as f:
+            keys = set(json.load(f))
+        scores = {k: summary[k] for k in VALIDATE_SCORE_KEYS[problem]
+                  if not isinstance(summary[k], list)}
+        print(f"[validate] validate_pn_torch --problem {problem} from "
+              f"scratch (capacity {summary['capacity']}, {SHORT_EPOCHS} "
+              f"epochs of {steps} steps, {SHORT_STEPS} rollout steps): "
+              + ", ".join(f"{k} {v:.5f}" for k, v in scores.items())
+              + f"; launches (K1-K5) {counts}, expected {want}; "
+              f"{secs:.1f} s", flush=True)
+        check(frames.shape[0] == SHORT_STEPS and
+              bool(np.isfinite(frames).all()), f"{problem}: frames")
+        check(all(bool(np.isfinite(summary[k]).all())
+                  for k in VALIDATE_SCORE_KEYS[problem]),
+              f"{problem}: scores {scores}")
+        missing = (VALIDATE_KEYS | VALIDATE_SCORE_KEYS[problem]) - keys
+        check(not missing, f"{problem}: summary.json lacks {missing}")
+        check(counts == want, f"{problem}: launches {counts} != {want}")
+        out["counts"][f"validate_{problem}"] = counts
+
+    # (d) the dt=0.1 checkpoint's raw parameters, 50 steps through
+    # scripts/rollout_torch.py (run twice: 2 x 50 steps of 2 K1).
+    reset_counts(mk, ak)
+    dt01 = load_script("rollout_torch").main(["--fixture", DT01_FIXTURE])
+    torch.cuda.synchronize()
+    counts = read_counts(mk, ak)
+    print(f"[validate] dt=0.1 checkpoint (raw params), 50 steps: mean rel-L2 "
+          f"{dt01['mean_rel_norm']:.6f} (JAX-CPU "
+          f"{dt01['jax_mean_rel_norm']:.6f}); launches (K1-K5) {counts}",
+          flush=True)
+    check(counts == (200, 0, 0, 0, 0), f"dt=0.1 rollout launches {counts}")
+    check(abs(dt01["mean_rel_norm"] - dt01["jax_mean_rel_norm"])
+          <= MEAN_REL_L2_TOL, f"dt=0.1 rollout {dt01['mean_rel_norm']:.6f}")
+    out["counts"]["dt01_rollout"] = counts
+    out["dt01_mean_rel_l2"] = dt01["mean_rel_norm"]
+    return out
+
+
 def describe_times(times) -> str:
     return "; ".join(f"{impl} fwd {times[(impl, 'fwd')]:.4f} ms, fwd+bwd "
                      f"{times[(impl, 'bwd')]:.4f} ms"
@@ -2205,7 +2625,8 @@ def run() -> tuple:
         raise SmokeFailure(f"pigs_tpu_torch/ not found beside {__file__}: run "
                            "from a checkout of the repo")
     for path in (FIXTURE, TRAIN_FIXTURE, NS_FIXTURE, NS_DATA,
-                 NS_TRAIN_FIXTURE, NO_MLP_FIXTURE, FIT_FIXTURE):
+                 NS_TRAIN_FIXTURE, NO_MLP_FIXTURE, FIT_FIXTURE,
+                 NO_MLP_1D_FIXTURE, DT01_FIXTURE):
         check(os.path.exists(path), f"fixture {path} not found")
     sys.path.insert(0, ROOT)
 
@@ -2599,6 +3020,11 @@ def run() -> tuple:
     k1_abs = max([k1_abs] + [e["abs"] for e in nsd["errs"]])
     bwd_abs = max([bwd_abs] + [e["abs"] for e in nsd["berrs"]])
 
+    # 14. the double backward, validate_pn_torch and the dt=0.1
+    # checkpoint, counted
+    val = validate_phase(dev, mk, ak, card, ti, data)
+    counts.update(val["counts"])
+
     for phase in (ns, nst, nmp, nsd):
         times["mixture_fwd"].update(phase["k1_times"])
     for phase in (nst, nmp, nsd):
@@ -2715,6 +3141,9 @@ def run() -> tuple:
                 "block_errs", "burgers_2d_rel_l2", "burgers_2d_s",
                 "burgers_2d_iters", "burgers_1d_rel_l2", "burgers_1d_s",
                 "wave_2d_s", "block_ms")},
+            "no_mlp_1d_ic_fit": {k: nmp["ic_1d"][k] for k in (
+                "render", "render_at_fit_samples", "render_cpu", "fits")},
+            "validate": {k: v for k, v in val.items() if k != "counts"},
             "ns_data": {k: nsd[k] for k in (
                 "generate_s", "regen_max_abs", "block_errs", "fit_s",
                 "port_fit_loss", "port_fit_t0_rel_l2", "port_fit_mean_rel_l2",

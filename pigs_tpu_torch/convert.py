@@ -186,6 +186,31 @@ def load_train_fixture(path: str, device=None, dtype=torch.float32):
                                 for k in names], data)
 
 
+def checkpoint_train_fixture(path: str, checkpoint_dir: str, device=None,
+                             expect=None):
+    """Write an exported training fixture (:func:`load_train_fixture`) as
+    the port's checkpoint at the fixture's epoch in ``checkpoint_dir``
+    (parameters, Adam state, EMA; no training loss), unless the directory
+    holds one at that epoch or later, so that ``train(resume=True)``
+    resumes there.  With ``expect`` (a model config), a fixture of another
+    problem, grid or capacity raises ValueError and writes nothing.
+    Returns the fixture's model config."""
+    from pigs_tpu_torch.train.checkpoint import latest_epoch, save_checkpoint
+    cfg, net, opt, ema, data = load_train_fixture(path, device=device)
+    if expect is not None:
+        got, want = ((c.problem.name, c.nx, c.ny, c.capacity)
+                     for c in (cfg, expect))
+        if got != want:
+            raise ValueError(f"{path} holds (problem, nx, ny, capacity) "
+                             f"{got}, not {want}")
+    epoch = int(data["train_epoch"])
+    if (latest_epoch(checkpoint_dir) or -1) < epoch:
+        names = [k for k, _ in net.named_parameters()]
+        save_checkpoint(checkpoint_dir, epoch, dict(net.named_parameters()),
+                        opt, [], ema=dict(zip(names, ema)))
+    return cfg
+
+
 def load_fixture(path: str, device=None):
     """Load an exported rollout fixture (``scripts/export_torch_fixture.py``).
 

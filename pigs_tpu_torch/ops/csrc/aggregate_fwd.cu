@@ -50,10 +50,11 @@
 //    sincos work, 24 angles a pair, instead of 12 lanes of the warp taking
 //    one pair's angles while 20 wait; then, two pairs in flight, lane
 //    (octave h, feature l) reads its octave's 12 sin and 12 cos as float4s
-//    and forms pair_gate's sum in pair_gate's order, the halves meet by one
-//    shuffle, and lane l adds p mapped_jl gate_l to acc_l.  A pair's gate
-//    costs 6 shared loads and one shuffle on the warp's path, not a sincos
-//    and 25 shuffles (aggregate_common.cuh::pair_gate, which K5 keeps).
+//    and forms its GateRow's sum w0 + sum_k (ws_k sin_k + wc_k cos_k)
+//    (aggregate_common.cuh), the halves meet by one shuffle, and lane l
+//    adds p mapped_jl gate_l to acc_l.  A pair's gate costs 6 shared loads
+//    and one shuffle on the warp's path, not a sincos and 25 shuffles, as
+//    a gate formed by one lane a pair would.
 //  * With one slice the warp writes acc / s, or exactly 0 for a row with no
 //    neighbour.  With several it writes (m, s, acc) to scratch
 //    (slices, n, 18), and a last small kernel merges a row's slices in

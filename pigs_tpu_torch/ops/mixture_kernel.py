@@ -19,9 +19,16 @@ conics or values need a gradient) and K3 (only when the samples need one,
 PyTorch's form of the JAX package's ``diff_samples``).  On CPU tensors the
 same Function runs the plain twins, :func:`mixture_forward_plain`,
 :func:`mixture_backward_gauss_plain` and :func:`mixture_backward_sample_plain`,
-which compute the same hand-derived adjoint.  Anything else raises.  The
-backward is first order only (``once_differentiable``): a second-order
-request raises.
+which compute the same hand-derived adjoint.  Anything else raises.
+
+The backward is itself differentiable: when a second-order gradient is
+asked for (``create_graph=True``), it runs as :class:`_MixtureBackward`,
+whose forward is the same K2/K3 call and whose own backward differentiates
+the dense oracle's vjp of the packed mapping again, in torch ops on the
+primals' device and dtype (the JAX package's ``_bwd_op_bwd``, plain AD of
+the dense oracle, not a kernel).  Past
+:data:`SECOND_ORDER_PAIR_BUDGET` sample-Gaussian pairs it runs over sample
+chunks.  Without ``create_graph`` the backward calls the kernels directly.
 
 Each kernel splits the axis it sums over so that the grid fills the card
 at the main path's small shapes: K1 and K3 cut the Gaussians into slices
@@ -40,15 +47,14 @@ import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
-
-from pigs_tpu_torch.ops.oracle import MixtureFields
+from pigs_tpu_torch.ops.oracle import MixtureFields, eval_mixture_dense
 
 __all__ = ["mixture_forward", "mixture_forward_plain",
            "mixture_backward_gauss", "mixture_backward_gauss_plain",
            "mixture_backward_sample", "mixture_backward_sample_plain",
            "eval_mixture_fused", "pack_conics", "unpack_fields", "build",
            "fwd_geometry", "gauss_geometry", "launches",
+           "SECOND_ORDER_PAIR_BUDGET",
            "bwd_gauss_launches", "bwd_sample_launches"]
 
 GROUP_SIZES = (1, 2, 3, 4)   # packed components per derivative order
@@ -58,6 +64,9 @@ THREADS = 128                # samples per K1/K3 block, Gaussians per K2 block
 FWD_SLICE_UNIT = 8           # K1/K3 Gaussian slices: whole numbers of these
 BWD_SLICE_UNIT = 32          # K2's sample slices: whole numbers of these
 BLOCKS_PER_SM = 6            # the grid the slicing aims for (at least 2)
+# Most sample-Gaussian pairs one dense second-order vjp may hold at once
+# (~30 (m, n) intermediates: ~1 GB in float32); past it, sample chunks.
+SECOND_ORDER_PAIR_BUDGET = 1 << 23
 
 # Number of times each CUDA kernel was launched in this process.
 launches = 0             # K1
@@ -464,6 +473,107 @@ def mixture_backward_sample(means, conics_packed, values, samples, cots,
                               order, period)
 
 
+def _first_order(means, conics_packed, values, samples, cots, order,
+                 period, need_gauss, need_sample):
+    """``(gm, gc, gv, gx)``: K2 when ``need_gauss``, K3 when
+    ``need_sample`` (their plain twins on the CPU); None where not asked."""
+    gm = gc = gv = gx = None
+    if need_gauss:
+        gm, gc, gv = mixture_backward_gauss(means, conics_packed, values,
+                                            samples, cots, order, period)
+    if need_sample:
+        gx = mixture_backward_sample(means, conics_packed, values, samples,
+                                     cots, order, period)
+    return gm, gc, gv, gx
+
+
+def _dense_packed(means, conics_packed, values, samples, order, period):
+    """The dense oracle as a function of the packed conics, read as
+    ``[[cxx, cxy], [cxy, cyy]]``, with its outputs packed as K1 packs them.
+    Its vjp is K2's and K3's: the packed ``cxy`` appears in both
+    off-diagonal places, so its gradient is C01 + C10."""
+    cxx, cxy, cyy = conics_packed.unbind(-1)
+    full = torch.stack([torch.stack([cxx, cxy], -1),
+                        torch.stack([cxy, cyy], -1)], -2)
+    out = eval_mixture_dense(means, full, values, samples, order=order,
+                             period=period)
+    m, c = samples.shape[0], values.shape[1]
+    packed = [out.u]
+    if order >= 1:
+        packed.append(out.ux.reshape(m, 2 * c))
+    if order >= 2:
+        h = out.uxx
+        packed.append(torch.stack([h[:, 0, 0], h[:, 0, 1], h[:, 1, 1]], 1)
+                      .reshape(m, 3 * c))
+    if order >= 3:
+        t = out.uxxx
+        packed.append(torch.stack([t[:, 0, 0, 0], t[:, 0, 0, 1],
+                                   t[:, 0, 1, 1], t[:, 1, 1, 1]], 1)
+                      .reshape(m, 4 * c))
+    return packed
+
+
+def _double_vjp(primals, cots, order, period, need_gauss, need_sample,
+                grads):
+    """The vjp of the first-order map (primals, cots) -> (gm, gc, gv, gx)
+    against ``grads`` (None where that gradient was not formed), through the
+    dense oracle: cotangents of the four primals and of every cotangent."""
+    with torch.enable_grad():
+        prim = [t.detach().requires_grad_() for t in primals]
+        cot = [t.detach().requires_grad_() for t in cots]
+        outs = _dense_packed(*prim, order, period)
+        wanted = [need_gauss] * 3 + [need_sample]
+        firsts = torch.autograd.grad(
+            outs, [p for p, w in zip(prim, wanted) if w], cot,
+            create_graph=True)
+        pairs = [(f, g) for f, g in zip(
+            firsts, [g for g, w in zip(grads, wanted) if w]) if g is not None]
+        res = torch.autograd.grad([f for f, _ in pairs], prim + cot,
+                                  [g for _, g in pairs], allow_unused=True)
+    return [torch.zeros_like(t) if r is None else r
+            for r, t in zip(res, prim + cot)]
+
+
+class _MixtureBackward(torch.autograd.Function):
+    """The first-order backward as a differentiable op (the JAX package's
+    ``_bwd_op``): its forward is K2 (and K3) on CUDA, the plain twins on
+    the CPU; its backward is the dense oracle's vjp differentiated again
+    (``_bwd_op_bwd``), over sample chunks of ``max(budget // n, 1)`` rows
+    past :data:`SECOND_ORDER_PAIR_BUDGET` pairs: the shared primals'
+    cotangents summed, the samples' and the cotangents' concatenated."""
+
+    @staticmethod
+    def forward(ctx, means, conics_packed, values, samples, order, period,
+                need_gauss, need_sample, *cots):
+        ctx.args = (order, period, need_gauss, need_sample)
+        ctx.save_for_backward(means, conics_packed, values, samples, *cots)
+        return _first_order(means, conics_packed, values, samples, cots,
+                            order, period, need_gauss, need_sample)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        order, period, need_gauss, need_sample = ctx.args
+        means, conics_packed, values, samples, *cots = ctx.saved_tensors
+        m, n = samples.shape[0], means.shape[0]
+        chunk = m if m * n <= SECOND_ORDER_PAIR_BUDGET else max(
+            SECOND_ORDER_PAIR_BUDGET // n, 1)
+        shared, rows = None, []
+        for start in range(0, m, chunk):
+            stop = start + chunk
+            gx = grads[3] if grads[3] is None else grads[3][start:stop]
+            res = _double_vjp(
+                (means, conics_packed, values, samples[start:stop]),
+                [cb[start:stop] for cb in cots], order, period, need_gauss,
+                need_sample, (*grads[:3], gx))
+            shared = res[:3] if shared is None else [
+                a + b for a, b in zip(shared, res[:3])]
+            rows.append(res[3:])
+        if shared is None:       # no samples: every gradient is zero
+            return (None,) * (8 + len(cots))
+        per_row = [torch.cat(parts) for parts in zip(*rows)]
+        return (*shared, per_row[0], None, None, None, None, *per_row[1:])
+
+
 class _MixtureForward(torch.autograd.Function):
     """Autograd seam around K1: the forward runs K1 (or its twin on the CPU),
     the backward K2 and, when the samples need a gradient, K3.
@@ -471,7 +581,10 @@ class _MixtureForward(torch.autograd.Function):
     The Function's outputs are the packed fields, so autograd through
     :func:`unpack_fields` already sums the cotangents of the symmetric
     positions into the packed components, as the JAX package's
-    ``_pack_cotangents`` does; a field nobody used arrives as zeros.
+    ``_pack_cotangents`` does; a field nobody used arrives as zeros.  Under
+    ``create_graph=True`` the backward runs as :class:`_MixtureBackward`,
+    so that it can be differentiated again; otherwise it calls the kernels
+    directly.
     """
 
     @staticmethod
@@ -485,19 +598,17 @@ class _MixtureForward(torch.autograd.Function):
                                            samples, order, period))
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, *grads):
         means, conics_packed, values, samples = ctx.saved_tensors
         cots = [g.to(samples.dtype).contiguous() for g in grads]
         need = ctx.needs_input_grad
-        gm = gc = gv = gx = None
-        if any(need[:3]):
-            gm, gc, gv = mixture_backward_gauss(
-                means, conics_packed, values, samples, cots, ctx.order,
-                ctx.period)
-        if need[3]:
-            gx = mixture_backward_sample(means, conics_packed, values,
-                                         samples, cots, ctx.order, ctx.period)
+        args = (ctx.order, ctx.period, any(need[:3]), need[3])
+        if torch.is_grad_enabled():
+            gm, gc, gv, gx = _MixtureBackward.apply(
+                means, conics_packed, values, samples, *args, *cots)
+        else:
+            gm, gc, gv, gx = _first_order(means, conics_packed, values,
+                                          samples, cots, *args)
         return (gm if need[0] else None, gc if need[1] else None,
                 gv if need[2] else None, gx, None, None)
 

@@ -150,6 +150,24 @@ groups means, values, scaling, transforms):
                         generate_fno(seed=1) (its key-split sequence): the
                         white noise the committed dataset was solved from
 
+``--kind no-mlp-1d`` runs the 1-D Burgers IC fit (``solve_no_mlp.py``'s
+defaults: 25 Gaussians, capacity 1024, 128 samples, lr 1e-2, blocks of 100
+iterations) from PRNGKey(seed) for seeds 0-9, as ``solve`` keys timestep 0,
+and scores it by the rel-L2 against exp(-2 x^2) on 201 points (chip_smoke.py
+phase 12d's score).  It writes:
+
+  final_rel_l2          (10,) each seed's fit as solve_timestep stops it
+  block_loss, block_rel_l2
+                        (10, 50) the same fits followed block by block for
+                        50 blocks (past the stopping rule): each block's
+                        mean loss and the rel-L2 after it
+  draws_base, draws_time  (5, 100, 128, 1), (5, 100, 128): seed 0's first
+                        five blocks of draws (jax_block_draws), float32
+
+``--params raw`` (rollout) exports a checkpoint's raw parameters where it
+carries no EMA (artifacts/burgers_dt01_ckpt_30000); ``config_params`` says
+which were exported.
+
 The port (pigs_tpu_torch) loads these files on a machine without JAX.
 
 Examples:
@@ -162,6 +180,10 @@ Examples:
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind ns-train
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind no-mlp
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind fit
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind no-mlp-1d
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --params raw \
+      --ckpt artifacts/burgers_dt01_ckpt_30000 \
+      --out artifacts/burgers_dt01_torch.npz
 """
 
 import argparse
@@ -185,8 +207,10 @@ def flagship_config():
                               nx=NX, ny=NX, d=2, scale=1.0)
 
 
-def restore_ema_params(ckpt: str, cfg):
-    """(network, EMA params) of the single-step orbax checkpoint ``ckpt``."""
+def restore_params(ckpt: str, cfg, which: str = "ema"):
+    """(network, params) of the single-step orbax checkpoint ``ckpt``: its
+    EMA params (``which="ema"``) or its raw ones (``"raw"``, for a
+    checkpoint that carries no EMA)."""
     from pigs_tpu.train.checkpoint import restore_checkpoint
     from pigs_tpu.train.pn import TrainConfig, init_training
     network, template, _, _ = init_training(cfg, TrainConfig(n_epochs=1))
@@ -194,8 +218,11 @@ def restore_ema_params(ckpt: str, cfg):
     with tempfile.TemporaryDirectory() as td:
         shutil.copytree(ckpt, os.path.join(td, step if step.isdigit() else "0"))
         restored = restore_checkpoint(td, template)
+    if which == "raw":
+        return network, restored.params
     if restored.ema_params is None:
-        raise ValueError(f"{ckpt} carries no ema_params")
+        raise ValueError(f"{ckpt} carries no ema_params (export its raw "
+                         "params with --params raw)")
     return network, restored.ema_params
 
 
@@ -576,7 +603,7 @@ def _export_ns(ckpt: str, data_path: str, out: str):
     from pigs_tpu.train.pn import NSDataset, rollout_metrics
 
     cfg = ns_config()
-    network, params = restore_ema_params(ckpt, cfg)
+    network, params = restore_params(ckpt, cfg)
     flat = flatten_params(params)
     data = NSDataset.load(data_path)
     index = int(data.means.shape[0]) - 1
@@ -962,27 +989,97 @@ def export_fit(data_path: str, out: str):
     print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 
+# The 1-D IC fit's band (scripts/solve_no_mlp.py's defaults, Burgers d=1):
+# seeds, blocks followed, evaluation points and the blocks of draws kept.
+IC1D_SEEDS, IC1D_BLOCKS, IC1D_POINTS, IC1D_DRAW_BLOCKS = 10, 50, 201, 5
+
+
+def export_no_mlp_1d(out: str):
+    """Write the 1-D no-MLP IC-fit fixture (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from pigs_tpu.ops.oracle import eval_mixture_dense
+    from pigs_tpu.pde import Problem
+    from pigs_tpu.train.no_mlp import (NoMLPConfig, _make_opt, _run_block,
+                                       concrete, init_params, solve_timestep)
+    cfg = NoMLPConfig(problem=Problem.BURGERS, d=1)
+    x = (jnp.linspace(-1, 1, IC1D_POINTS) * cfg.scale).reshape(-1, 1)
+    target = jnp.exp(-2.0 * x[:, 0] ** 2)
+
+    def rel_l2(params, active):
+        m, c, v = concrete(cfg, params)
+        u = eval_mixture_dense(m, c, v, x, order=0, mask=active).u[:, 0]
+        return float(jnp.linalg.norm(u - target) / jnp.linalg.norm(target))
+
+    final, block_loss, block_rel, base, time = [], [], [], [], []
+    for seed in range(IC1D_SEEDS):
+        # As solve() keys timestep 0.
+        _, key = jax.random.split(jax.random.PRNGKey(seed))
+        params, active = init_params(cfg)
+        fitted, _, loss = solve_timestep(cfg, params, active, None, key,
+                                         first_step=True)
+        final.append(rel_l2(fitted, active))
+        # The same fit followed block by block past its stopping rule.
+        opt_state = _make_opt(cfg).init(params)
+        losses, rels = [], []
+        for b in range(IC1D_BLOCKS):
+            key, sub = jax.random.split(key)
+            if seed == 0 and b < IC1D_DRAW_BLOCKS:
+                bb, _, _, tt = jax_block_draws(cfg, sub, active, True)
+                base.append(bb)
+                time.append(tt)
+            params, opt_state, _, lb = _run_block(cfg, params, opt_state,
+                                                  active, None, sub, True)
+            losses.append(float(lb))
+            rels.append(rel_l2(params, active))
+        block_loss.append(losses)
+        block_rel.append(rels)
+        print(f"seed {seed}: solve_timestep loss {loss:.3e} rel-L2 "
+              f"{final[-1]:.5f}; blocks 10-{IC1D_BLOCKS} rel-L2 median "
+              f"{np.median(rels[10:]):.5f} max {max(rels[10:]):.5f}",
+              flush=True)
+    np.savez_compressed(
+        out, config_seeds=np.asarray(IC1D_SEEDS),
+        config_points=np.asarray(IC1D_POINTS),
+        config_block_iters=np.asarray(cfg.block_iters),
+        final_rel_l2=np.asarray(final),
+        block_loss=np.asarray(block_loss), block_rel_l2=np.asarray(block_rel),
+        draws_base=np.stack(base).astype(np.float32),
+        draws_time=np.stack(time).astype(np.float32))
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--kind", choices=["rollout", "train", "ns", "ns-train",
-                                      "no-mlp", "fit"],
+                                      "no-mlp", "no-mlp-1d", "fit"],
                    default="rollout")
     p.add_argument("--ckpt", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_ckpt_30000 "
                         "(rollout, train) or artifacts/ns_vorttrain_ckpt_20000 "
                         "(ns, ns-train)")
+    p.add_argument("--params", choices=["ema", "raw"], default="ema",
+                   help="rollout: the checkpoint's EMA params, or its raw "
+                        "ones for a checkpoint without an EMA "
+                        "(artifacts/burgers_dt01_ckpt_30000)")
     p.add_argument("--ns-data", default="artifacts/ns_data_8traj.npz")
     p.add_argument("--out", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_torch.npz "
                         "(rollout), ..._train_torch.npz (train), "
                         "artifacts/ns_vorttrain_torch.npz (ns), "
                         "artifacts/ns_vorttrain_train_torch.npz (ns-train) "
-                        "artifacts/no_mlp_torch.npz (no-mlp) or "
+                        "artifacts/no_mlp_torch.npz (no-mlp), "
+                        "artifacts/no_mlp_1d_torch.npz (no-mlp-1d) or "
                         "artifacts/fit_torch.npz (fit)")
     args = p.parse_args()
     if args.kind == "fit":
         export_fit(args.ns_data, args.out or "artifacts/fit_torch.npz")
+        return
+    if args.kind == "no-mlp-1d":
+        export_no_mlp_1d(args.out or "artifacts/no_mlp_1d_torch.npz")
         return
     if args.kind == "no-mlp":
         import jax
@@ -1017,7 +1114,7 @@ def main():
     from pigs_tpu.utils.fd import solve_fd_2d
 
     cfg = flagship_config()
-    network, params = restore_ema_params(args.ckpt, cfg)
+    network, params = restore_params(args.ckpt, cfg, args.params)
     flat = flatten_params(params)
     print(f"restored {args.ckpt}: {len(flat)} leaves, "
           f"{sum(v.size for v in flat.values())} numbers", flush=True)
@@ -1041,6 +1138,7 @@ def main():
         config_dt=np.asarray(DT),
         config_res=np.asarray(RES),
         config_steps=np.asarray(STEPS),
+        config_params=np.asarray(args.params),
         jax_frames=np.asarray(frames, np.float32),
         fd_frames=fd_frames.astype(np.float32),
         jax_mean_rel_l2=np.asarray(metrics["mean_rel_norm"]),

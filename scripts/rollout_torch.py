@@ -7,9 +7,13 @@ exported fixture (scripts/export_torch_fixture.py), rolls the model out on
 ``--device``, and prints the per-step and mean relative L2 error against the
 fixture's FD frames, beside the JAX-CPU rollout's mean.
 
-Example:
+The rollout runs twice, the first time to warm up (rollout's timing).
+
+Examples (the flagship's EMA; the dt=0.1 checkpoint's raw parameters):
   python scripts/rollout_torch.py \
       --fixture artifacts/burgers_ns4096_ema2_torch.npz --device cuda
+  python scripts/rollout_torch.py \
+      --fixture artifacts/burgers_dt01_torch.npz --device cuda
 """
 
 import argparse
@@ -20,12 +24,12 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--fixture", default="artifacts/burgers_ns4096_ema2_torch.npz")
     p.add_argument("--device", default="cuda")
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     import torch
 
@@ -50,8 +54,11 @@ def main():
     print(f"mean rel-L2 vs FD: {m['mean_rel_norm']:.4f} "
           f"(JAX-CPU rollout of the same fixture: "
           f"{float(data['jax_mean_rel_l2']):.4f})")
-    print(json.dumps({"mean_rel_norm": m["mean_rel_norm"],
-                      "evo_time_s": evo_time, "device": name}))
+    summary = {"mean_rel_norm": m["mean_rel_norm"],
+               "jax_mean_rel_norm": float(data["jax_mean_rel_l2"]),
+               "evo_time_s": evo_time, "device": name}
+    print(json.dumps(summary))
+    return summary
 
 
 if __name__ == "__main__":

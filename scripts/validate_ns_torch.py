@@ -140,8 +140,7 @@ def main():
     import numpy as np
     import torch
 
-    from pigs_tpu_torch.convert import load_fixture, load_train_fixture
-    from pigs_tpu_torch.train.checkpoint import latest_epoch, save_checkpoint
+    from pigs_tpu_torch.convert import checkpoint_train_fixture, load_fixture
     from pigs_tpu_torch.train.pn import (NSDataset, TrainConfig,
                                          rollout_metrics, rollout_vorticity,
                                          train)
@@ -165,14 +164,8 @@ def main():
     if args.epochs > 0:
         resume = args.resume
         if args.resume_fixture:
-            cfg, net, opt, ema, tdata = load_train_fixture(args.resume_fixture,
-                                                           device=device)
-            epoch = int(tdata["train_epoch"])
-            if (latest_epoch(args.ckpt_dir) or -1) < epoch:
-                names = [k for k, _ in net.named_parameters()]
-                save_checkpoint(args.ckpt_dir, epoch,
-                                dict(net.named_parameters()), opt, [],
-                                ema=dict(zip(names, ema)))
+            cfg = checkpoint_train_fixture(args.resume_fixture,
+                                           args.ckpt_dir, device)
             resume = True
         tcfg = TrainConfig(n_epochs=args.epochs, n_samples=args.n_samples,
                            lr=args.lr, lr_min=args.lr_min, dt=args.dt,

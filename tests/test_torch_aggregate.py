@@ -100,3 +100,23 @@ def test_factored_equals_dense_in_torch(period):
     lonely = ~mask.any(dim=1)
     assert lonely.any()
     assert (factored[lonely] == 0).all()
+
+
+@pytest.mark.parametrize("period", [None, 2.0])
+@pytest.mark.parametrize("fn", ["aggregate_neighbors",
+                                "aggregate_neighbors_factored"])
+def test_aggregate_gradcheck_f64(fn, period):
+    """torch.autograd.gradcheck of the aggregation over every tensor input
+    (features, transform, queries, keys, frequencies, distance_transform and
+    the means) at a tiny size, the neighbour mask held fixed."""
+    args, cov, active = make(4, n=6, L=4, K=4, F=2)
+    names = list(args)
+    targs = [torch.from_numpy(args[k]).requires_grad_() for k in names]
+    mask = tagg.neighbor_mask(targs[-1].detach(), torch.from_numpy(cov),
+                              active=torch.from_numpy(active), sigma_cut=40.0,
+                              period=period)
+    assert 0 < int(mask.sum()) < mask.numel()
+    f = getattr(tagg, fn)
+    assert torch.autograd.gradcheck(
+        lambda *a: f(**dict(zip(names, a)), mask=mask, period=period),
+        targs)

@@ -12,7 +12,9 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "pigs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "rollout_torch.py",
-    ROOT / "scripts" / "train_torch.py",
+    ROOT / "scripts" / "train_pn_torch.py",
+    ROOT / "scripts" / "validate_pn_torch.py",
+    ROOT / "scripts" / "plot_rollout_torch.py",
     ROOT / "scripts" / "validate_ns_torch.py",
     ROOT / "scripts" / "solve_no_mlp_torch.py",
     ROOT / "scripts" / "validate_no_mlp_2d_torch.py",
@@ -42,7 +44,8 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"mixture_kernel.py", "aggregate_kernel.py", "model.py", "pn.py",
-            "convert.py", "optim.py", "checkpoint.py", "train_torch.py",
+            "convert.py", "optim.py", "checkpoint.py", "train_pn_torch.py",
+            "validate_pn_torch.py", "plot_rollout_torch.py", "plotting.py",
             "validate_ns_torch.py", "fd.py", "no_mlp.py", "card.py",
             "solve_no_mlp_torch.py", "validate_no_mlp_2d_torch.py",
             "fit.py", "ns_data.py", "initialize_torch.py"} <= names

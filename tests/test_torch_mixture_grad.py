@@ -14,6 +14,8 @@ hand-derived adjoint the CUDA kernels compute.
 * The plain twins against ``_pallas_backward`` in interpret mode in
   float32, norm-relative 1e-5 (both sum in float32 in different orders).
 * ``torch.autograd.gradcheck`` of the Function in float64 on a tiny case.
+* A second-order gradient through the Function against the port's dense
+  oracle in float64.
 
 Inputs are made with numpy from fixed seeds.
 """
@@ -30,6 +32,7 @@ from pigs_tpu.ops.pallas_mixture import _pallas_backward
 from pigs_tpu_torch.gaussians import build_full_covariances
 from pigs_tpu_torch.ops import mixture_kernel as mk
 from pigs_tpu_torch.ops.mixture import eval_mixture
+from pigs_tpu_torch.ops.oracle import eval_mixture_dense as t_dense
 
 F64_RTOL = 1e-10
 F32_NORM_REL = 1e-5
@@ -182,14 +185,23 @@ def test_sample_backward_runs_only_when_samples_need_grad(monkeypatch):
 
 
 def test_second_order_raises():
+    """A second-order request no longer raises (the backward was
+    ``once_differentiable`` until the double backward was ported): it
+    equals torch autograd through the port's own dense oracle in float64.
+    tests/test_torch_mixture_double.py holds it against the JAX package."""
     means, conics, values, samples, _, _ = make(81)
-    mu = torch.from_numpy(means).requires_grad_()
-    out = eval_mixture(mu, torch.from_numpy(conics), torch.from_numpy(values),
-                       torch.from_numpy(samples), order=1)
-    # A cotangent that itself requires grad, as inside a second-order loss.
-    (g,) = torch.autograd.grad((out.u ** 2).sum(), mu, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
+
+    def second(fn):
+        mu = torch.from_numpy(means).requires_grad_()
+        out = fn(mu, torch.from_numpy(conics), torch.from_numpy(values),
+                 torch.from_numpy(samples), order=1)
+        # A cotangent that itself requires grad, as inside a second-order
+        # loss.
+        (g,) = torch.autograd.grad((out.u ** 2).sum(), mu, create_graph=True)
+        (gg,) = torch.autograd.grad((g ** 2).sum(), mu)
+        return gg.numpy()
+
+    close(second(eval_mixture), second(t_dense))
 
 
 def test_gauss_slices_cover_the_samples():

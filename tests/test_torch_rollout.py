@@ -9,6 +9,9 @@ fixture the port is held to on the GPU.
   sides, the port on the CPU against JAX on the CPU.
 * The fixture's parameters against a fresh orbax restore of the checkpoint:
   exact.
+* The dt=0.1 checkpoint's raw parameters (artifacts/burgers_dt01_torch.npz,
+  exported with ``--params raw``: the checkpoint has no EMA): its first 5
+  CPU rollout steps against the stored JAX frames, norm-relative 1e-4.
 """
 
 import importlib.util
@@ -32,6 +35,8 @@ from pigs_tpu_torch.train import pn as tpn
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "artifacts" / "burgers_ns4096_ema2_torch.npz"
 CKPT = ROOT / "artifacts" / "burgers_ns4096_ema2_ckpt_30000"
+DT01_FIXTURE = ROOT / "artifacts" / "burgers_dt01_torch.npz"
+DT01_CKPT = ROOT / "artifacts" / "burgers_dt01_ckpt_30000"
 
 
 def flatten(tree):
@@ -103,9 +108,32 @@ def test_fixture_rollout_matches_stored_jax_frames():
                                                rel=1e-12)
 
 
+def test_dt01_fixture_rollout_matches_stored_jax_frames():
+    cfg, net, data = convert.load_fixture(str(DT01_FIXTURE))
+    assert str(data["config_params"]) == "raw"
+    assert (cfg.capacity, cfg.nx, float(data["config_dt"])) == (1664, 20, 0.1)
+    frames = tpn.rollout_frames(cfg, net, tmodel.make_initial_state(cfg), 5,
+                                64, float(data["config_dt"])).numpy()
+    jax_frames = data["jax_frames"]
+    for i in range(5):
+        err = (np.linalg.norm(frames[i] - jax_frames[i])
+               / np.linalg.norm(jax_frames[i]))
+        assert err <= 1e-4, (i, err)
+    m = tpn.rollout_metrics(jax_frames[:, 0], data["fd_frames"])
+    assert m["mean_rel_norm"] == pytest.approx(float(data["jax_mean_rel_l2"]),
+                                               rel=1e-12)
+    # The raw parameters, as a fresh orbax restore gives them.
+    ex = exporter()
+    _, params = ex.restore_params(str(DT01_CKPT), ex.flagship_config(),
+                                      "raw")
+    with np.load(DT01_FIXTURE) as z:
+        for key, value in ex.flatten_params(params).items():
+            np.testing.assert_array_equal(z[key], value)
+
+
 def test_fixture_params_equal_a_fresh_orbax_restore():
     ex = exporter()
-    _, params = ex.restore_ema_params(str(CKPT), ex.flagship_config())
+    _, params = ex.restore_params(str(CKPT), ex.flagship_config())
     fresh = ex.flatten_params(params)
     with np.load(FIXTURE) as z:
         stored = {k: z[k] for k in z.files if k.startswith("params/")}
