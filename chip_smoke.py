@@ -194,10 +194,33 @@ Phases, in order; any failure exits non-zero:
                (artifacts/burgers_dt01_torch.npz) rolled out by
                scripts/rollout_torch.py: 2 K1 a step, mean rel-L2 within
                0.005 of the JAX-CPU score the fixture stores.
+ 15. parallel  the multi-process layer (pigs_tpu_torch.parallel) at the
+               flagship's training shape (the training fixture's 1664
+               Gaussians, its 4096 collocation samples, order 2, interior
+               mask): (a) one NCCL rank on cuda:0 (a file:// store, the
+               group destroyed after): eval_mixture_sharded and
+               eval_mixture_ring, fields and gradients bitwise equal to
+               eval_mixture's, 1 K1 and 1 K2 each; make_dp_train_step with
+               Adam against pn_loss_grads + adam_update: loss within 1e-6,
+               parameters bitwise equal (else, only if the reference does
+               not repeat itself bitwise, the update within 1e-2), 3 K1 /
+               2 K2 as pn_step; (b) two gloo ranks spawned on cuda:0, meshes
+               (2, 1) and (1, 2): each rank's gathered fields within 1e-5
+               and gradients within 1e-4 of a single-rank eval_mixture,
+               exact launches per rank (a ring call: one K1 and one K2 per
+               model rank), the ring's bytes through host memory (gloo's
+               point-to-point ops take CPU tensors); 3 DP steps on (2, 1)
+               against the same 3 steps on one rank (loss 1e-4, update
+               1e-2), both ranks' parameters bitwise equal after each; (c)
+               Timer around the DP step beside phase 8's pn_step, and a
+               trace whose JSON names K1 and K2; (d)
+               scripts/select_split_stop_torch.py on one of JAX's held-out
+               ICs (artifacts/select_split_torch.npz), stops 0, 8, 14, 50
+               steps: every score and the parity within 0.005 of JAX-CPU's.
 
 The line before the card's is the kernels line: per kernel its launches
 (per path, per training step, per NS training step, per rollout step, per
-no-MLP iteration, per curl-fit iteration),
+no-MLP iteration, per curl-fit iteration, per rank of the parallel paths),
 errors, device, graph, call and plain times and bounds by shape, and
 library_ms (null: no single PyTorch call computes any of these functions).
 
@@ -2608,6 +2631,398 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 15 ----
+
+SELECT_FIXTURE = os.path.join(ROOT, "artifacts", "select_split_torch.npz")
+PARALLEL_RANKS = 2          # phase 15b: gloo ranks, all on cuda:0
+PARALLEL_MESHES = ((2, 1), (1, 2))
+DP_STEPS = 3                # phase 15b: data-parallel steps against one rank
+DP_LOSS_TOL = 1e-6          # phase 15a: the DP step's loss vs pn_loss_grads'
+PARALLEL_TIMEOUT_S = 300
+SELECT_SCORE_TOL = MEAN_REL_L2_TOL  # phase 15d: vs the JAX-CPU scores
+
+
+def field_loss(fields):
+    return sum((f ** 2).sum() for f in fields if f is not None)
+
+
+def parallel_inputs(ti):
+    """Phase 15's mixture inputs at the flagship's training shape: the
+    training fixture's state (1664 Gaussians, interior mask) at its 4096
+    collocation samples, order 2."""
+    from pigs_tpu_torch.models.state import covariance_of
+    st = ti.state
+    return (st.means, covariance_of(st)[1], st.u, ti.samples, st.interior,
+            ti.cfg.period)
+
+
+def parallel_mixture(fn, mesh, ti, mk, ak):
+    """``fn`` (the sharded or ring evaluation) forward and backward of the
+    local loss at phase 15's inputs, counted: (this rank's fields, the
+    gradients of means, conics and values, launches K1-K5)."""
+    import torch
+    means, conics, values, samples, mask, period = parallel_inputs(ti)
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (means, conics, values)]
+    torch.cuda.synchronize()
+    reset_counts(mk, ak)
+    out = fn(mesh, *leaves, samples, order=2, mask=mask, period=period)
+    grads = torch.autograd.grad(field_loss(out), leaves)
+    torch.cuda.synchronize()
+    return out, grads, read_counts(mk, ak)
+
+
+def single_rank_mixture(ti):
+    """``eval_mixture`` at phase 15's inputs: fields and gradients."""
+    import torch
+
+    from pigs_tpu_torch.ops.mixture import eval_mixture
+    means, conics, values, samples, mask, period = parallel_inputs(ti)
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (means, conics, values)]
+    out = eval_mixture(*leaves, samples, order=2, mask=mask, period=period)
+    grads = torch.autograd.grad(field_loss(out), leaves)
+    return out, grads
+
+
+def dp_steps(step, ti, mesh, n_steps, timer=None):
+    """``n_steps`` of ``step`` from the fixture's checkpoint, the fields
+    carried as the epoch carries them: per step (loss, flat parameters on
+    the host, launches K1-K5)."""
+    import torch
+
+    from pigs_tpu_torch.ops import aggregate_kernel as ak
+    from pigs_tpu_torch.ops import mixture_kernel as mk
+    from pigs_tpu_torch.parallel.sharded import gather
+    ti.reset()
+    opt, state, prev = ti.opt, ti.state, ti.prev_fields(ti.cfg)
+    lr = torch.full((), ti.base_lr, device=ti.device)
+    out = []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        reset_counts(mk, ak)
+        if timer is None:
+            opt, state, curr, loss = step(opt, state, prev, ti.samples,
+                                          ti.time_samples, ti.bc_samples, lr,
+                                          i * ti.dt, ti.dt)
+        else:
+            with timer("dp_step", sync=list(ti.network.parameters())):
+                opt, state, curr, loss = step(
+                    opt, state, prev, ti.samples, ti.time_samples,
+                    ti.bc_samples, lr, i * ti.dt, ti.dt)
+        torch.cuda.synchronize()
+        out.append((float(loss), ti.flat_params(), read_counts(mk, ak)))
+        prev = gather(mesh, curr)
+    return out
+
+
+def flat_params0(ti):
+    """The checkpoint's parameters, flat, float64, on the host."""
+    import torch
+    return torch.cat([p.flatten().double().cpu() for p in ti.params0])
+
+
+def parallel_rank(rank, store, out_dir, device):
+    """Phase 15b, one of PARALLEL_RANKS gloo ranks on ``device`` (all on
+    the same card): the sharded
+    and ring evaluation on each mesh of PARALLEL_MESHES against this
+    process's own single-rank ``eval_mixture``, and DP_STEPS data-parallel
+    steps on mesh (2, 1); the results go to ``out_dir/rank<r>.pt``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from pigs_tpu_torch.ops import aggregate_kernel as ak
+    from pigs_tpu_torch.ops import mixture_kernel as mk
+    from pigs_tpu_torch.parallel import sharded
+    from pigs_tpu_torch.parallel.launch import initialize_distributed
+    from pigs_tpu_torch.parallel.mesh import make_mesh
+    from pigs_tpu_torch.parallel.train import make_dp_train_step
+    from pigs_tpu_torch.utils.profiling import Timer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    check(initialize_distributed(f"file://{store}", PARALLEL_RANKS, rank,
+                                 backend="gloo", device=dev),
+          "gloo group not joined")
+    ti = TrainInputs(dev)
+    ref_out, ref_grads = single_rank_mixture(ti)
+    result = {"backend": dist.get_backend(), "mixture": {}}
+    for shape in PARALLEL_MESHES:
+        mesh = make_mesh(shape)
+        for name in ("sharded", "ring"):
+            fn = getattr(sharded, f"eval_mixture_{name}")
+            before = sharded.ring_host_bytes
+            out, grads, counts = parallel_mixture(fn, mesh, ti, mk, ak)
+            full = sharded.gather(mesh, out)
+            result["mixture"][(shape, name)] = {
+                "field_errs": [rel_err(a, b) for a, b in
+                               zip(full[:3], ref_out[:3])],
+                "grad_errs": [rel_err(sym(a) if k == 1 else a,
+                                      sym(b) if k == 1 else b)
+                              for k, (a, b) in enumerate(zip(grads,
+                                                             ref_grads))],
+                "max_abs": max(float((a - b.detach()).abs().max())
+                               for a, b in zip(full[:3], ref_out[:3])),
+                "counts": counts,
+                "host_bytes": sharded.ring_host_bytes - before}
+    mesh = make_mesh((PARALLEL_RANKS, 1))
+    step = make_dp_train_step(mesh, ti.cfg, ti.network)
+    timer = Timer()
+    result["dp"] = dp_steps(step, ti, mesh, DP_STEPS, timer)
+    result["dp_step_ms"] = timer.means()["dp_step"] * 1e3
+    dist.destroy_process_group()
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spawn_parallel_ranks(card, dev) -> list:
+    """Start PARALLEL_RANKS processes of :func:`parallel_rank` and return
+    their results; a rank that fails or outlives PARALLEL_TIMEOUT_S fails
+    the phase (every rank is stopped)."""
+    import torch
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(SCRATCH, "parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(parallel_rank, args=(
+        os.path.join(out_dir, "store"), out_dir, str(dev)),
+        nprocs=PARALLEL_RANKS,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, f"the {PARALLEL_RANKS} gloo "
+                  f"ranks did not finish in {PARALLEL_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        raise SmokeFailure(f"a gloo rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    print(f"[parallel] {PARALLEL_RANKS} gloo ranks on {dev} ran in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included; {card})",
+          flush=True)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(PARALLEL_RANKS)]
+
+
+def parallel_phase(dev, mk, ak, card, ti, pn_step_ms) -> dict:
+    """Phase 15: the multi-process layer on the card (see the module
+    docstring).  ``ti`` is phase 3's TrainInputs, ``pn_step_ms`` phase 8's
+    median pn_step time."""
+    import glob
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pigs_tpu_torch.parallel import sharded
+    from pigs_tpu_torch.parallel.launch import (host_summary,
+                                                initialize_distributed)
+    from pigs_tpu_torch.parallel.mesh import make_mesh
+    from pigs_tpu_torch.parallel.train import make_dp_train_step
+    from pigs_tpu_torch.train.optim import adam_update
+    from pigs_tpu_torch.train.pn import pn_loss_grads
+    from pigs_tpu_torch.utils.profiling import Timer, trace
+    out = {"counts": {}, "parallel": {}}
+
+    # (a) one NCCL rank on cuda:0.
+    os.makedirs(SCRATCH, exist_ok=True)
+    store = os.path.join(SCRATCH, f"nccl_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    check(initialize_distributed(f"file://{store}", 1, 0, device=dev),
+          "NCCL group not joined")
+    try:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        check(dist.get_backend() == backend, f"backend {dist.get_backend()}")
+        mesh = make_mesh((1, 1))
+        print(f"[parallel] {host_summary()}; backend {backend}, mesh "
+              f"{tuple(mesh.shape)}", flush=True)
+        ref_out, ref_grads = single_rank_mixture(ti)
+        for name in ("sharded", "ring"):
+            fn = getattr(sharded, f"eval_mixture_{name}")
+            got, grads, counts = parallel_mixture(fn, mesh, ti, mk, ak)
+            same = (all(torch.equal(a, b) for a, b in zip(got[:3],
+                                                           ref_out[:3]))
+                    and all(torch.equal(a, b) for a, b in zip(grads,
+                                                               ref_grads)))
+            print(f"[parallel] nccl 1x1 {name} 4096x1664 order 2: fields "
+                  f"and gradients bitwise equal to eval_mixture's: {same}; "
+                  f"launches (K1-K5) {counts}", flush=True)
+            check(same, f"nccl 1x1 {name}: not bitwise equal to eval_mixture")
+            check(counts == (1, 1, 0, 0, 0),
+                  f"nccl 1x1 {name} launches {counts}, expected (1, 1, 0)")
+            out["counts"][f"parallel_{name}"] = counts
+
+        # The DP step against pn_loss_grads + adam_update at the same lr;
+        # the reference twice, to tell a DP difference from the step's own.
+        lr = torch.full((), ti.base_lr, device=dev)
+        refs = []
+        for _ in range(2):
+            ti.reset()
+            prev = ti.prev_fields(ti.cfg)
+            torch.cuda.synchronize()
+            reset_counts(mk, ak)
+            _, _, _, total, grads = pn_loss_grads(
+                ti.cfg, ti.network, ti.state, prev, ti.samples,
+                ti.time_samples, ti.bc_samples, 0.0, ti.dt)
+            adam_update(list(ti.network.parameters()), grads, ti.opt, lr)
+            torch.cuda.synchronize()
+            refs.append((float(total), ti.flat_params(),
+                         read_counts(mk, ak)))
+        step = make_dp_train_step(mesh, ti.cfg, ti.network)
+        (loss, params, counts), = dp_steps(step, ti, mesh, 1)
+        start = flat_params0(ti)
+        loss_err = abs(loss - refs[0][0]) / abs(refs[0][0])
+        bitwise = torch.equal(params, refs[0][1])
+        ref_bitwise = torch.equal(refs[1][1], refs[0][1])
+        update_err = rel_err(params - start, refs[0][1] - start)
+        print(f"[parallel] nccl 1x1 DP step vs pn_loss_grads + adam_update: "
+              f"loss rel err {loss_err:.2e}; parameters bitwise equal "
+              f"{bitwise} (the reference against itself: {ref_bitwise}); "
+              f"update norm-rel err {update_err:.2e}; launches (K1-K5) "
+              f"{counts}, pn_loss_grads' {refs[0][2]}", flush=True)
+        check(loss_err <= DP_LOSS_TOL, f"DP loss {loss_err:.3e}")
+        check(bitwise or (not ref_bitwise and update_err <= STEP_UPDATE_TOL),
+              f"DP step parameters differ from pn_step's ({update_err:.3e}) "
+              "although the reference repeats bitwise")
+        check(counts == refs[0][2] == (3, 2, 0, 0, 0),
+              f"DP step launches {counts}, pn_loss_grads' {refs[0][2]}")
+        out["counts"]["parallel_dp_step"] = counts
+        out["dp_bitwise"] = bitwise
+
+        # (c) Timer and trace around the DP step.
+        timer = Timer()
+        steps = dp_steps(step, ti, mesh, 5, timer)
+        out["dp_step_ms"] = timer.means()["dp_step"] * 1e3
+        trace_dir = os.path.join(SCRATCH, "trace_dp_step")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with trace(trace_dir):
+            dp_steps(step, ti, mesh, 1)
+        traces = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+        check(len(traces) == 1, f"trace wrote {traces}")
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        found = {family: sorted(n for n in names if any(s in n for s in ids))
+                 for family, ids in KERNEL_FAMILIES.items()}
+        print(f"[parallel] Timer: DP step {out['dp_step_ms']:.2f} ms (mean of "
+              f"5, {timer.report()}) beside phase 8's pn_step "
+              f"{pn_step_ms:.2f} ms; trace {os.path.basename(traces[0])} "
+              f"names {sum(map(len, found.values()))} K1/K2 kernels: "
+              + "; ".join(f"{k}: {', '.join(v)[:120]}"
+                          for k, v in found.items()) + f" ({card})",
+              flush=True)
+        check(all(found.values()), f"trace names no K1 or K2 kernel: {found}")
+        check(all(s[2] == (3, 2, 0, 0, 0) for s in steps),
+              "timed DP step launches")
+        # The single-rank reference of (b): the same DP_STEPS steps.
+        single = dp_steps(step, ti, mesh, DP_STEPS)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    ti.reset()
+
+    # (b) PARALLEL_RANKS gloo ranks on cuda:0.
+    ranks = spawn_parallel_ranks(card, dev)
+    max_abs = 0.0
+    for r, res in enumerate(ranks):
+        check(res["backend"] == "gloo", f"rank {r} backend {res['backend']}")
+        for (shape, name), m in res["mixture"].items():
+            model = shape[1]
+            want = (1, 1, 0, 0, 0) if name == "sharded" else (model, model,
+                                                              0, 0, 0)
+            label = f"gloo rank {r} mesh {shape} {name}"
+            print(f"[parallel] {label}: fields rel err "
+                  + " ".join(f"{e:.2e}" for e in m["field_errs"])
+                  + "; grads (means, conics, values) "
+                  + " ".join(f"{e:.2e}" for e in m["grad_errs"])
+                  + f"; launches (K1-K5) {m['counts']}; {m['host_bytes']} "
+                  "bytes round the ring through host memory", flush=True)
+            check(max(m["field_errs"]) <= KERNEL_F32_TOL,
+                  f"{label} fields {max(m['field_errs']):.3e}")
+            check(max(m["grad_errs"]) <= KERNEL_F64_TOL,
+                  f"{label} grads {max(m['grad_errs']):.3e}")
+            check(m["counts"] == want, f"{label} launches {m['counts']}")
+            check(m["host_bytes"] > 0 if name == "ring" and model > 1
+                  else m["host_bytes"] == 0, f"{label} host bytes")
+            out["parallel"][f"gloo_{shape[0]}x{shape[1]}_{name}_rank{r}"] = \
+                m["counts"]
+            max_abs = max(max_abs, m["max_abs"])
+    start = flat_params0(ti)
+    for i in range(DP_STEPS):
+        loss0, params0, _ = ranks[0]["dp"][i]
+        loss_s, params_s, _ = single[i]
+        loss_err = abs(loss0 - loss_s) / abs(loss_s)
+        update_err = rel_err(params0 - start, params_s - start)
+        equal = all(torch.equal(res["dp"][i][1], params0) for res in ranks)
+        counts = [res["dp"][i][2] for res in ranks]
+        print(f"[parallel] gloo 2x1 DP step {i}: loss rel err vs one rank "
+              f"{loss_err:.2e}, update norm-rel err {update_err:.2e}; ranks' "
+              f"parameters bitwise equal: {equal}; launches per rank "
+              f"{counts}", flush=True)
+        check(loss_err <= STEP_LOSS_TOL, f"DP step {i} loss {loss_err:.3e}")
+        check(update_err <= STEP_UPDATE_TOL,
+              f"DP step {i} update {update_err:.3e}")
+        check(equal, f"DP step {i}: the ranks' parameters differ")
+        check(all(c == (3, 2, 0, 0, 0) for c in counts),
+              f"DP step {i} launches {counts}")
+    for r, res in enumerate(ranks):
+        out["parallel"][f"gloo_2x1_dp_step_rank{r}"] = res["dp"][0][2]
+    out["gloo_dp_step_ms"] = [res["dp_step_ms"] for res in ranks]
+    print(f"[parallel] harness check, not a scaling figure: a DP step of "
+          f"{PARALLEL_RANKS} gloo ranks sharing cuda:0 took "
+          + ", ".join(f"{t:.2f}" for t in out["gloo_dp_step_ms"])
+          + f" ms per rank (Timer mean of {DP_STEPS}; {card})", flush=True)
+    out["max_abs"] = max_abs
+
+    # (d) select_split_stop_torch at one held-out IC of JAX's draws.
+    with np.load(SELECT_FIXTURE) as z:
+        stops, steps = z["smoke_stops"].tolist(), int(z["smoke_steps"])
+        selection, evaluation = z["smoke_selection"], z["smoke_eval"]
+    with np.load(DT01_FIXTURE) as z:
+        parity = float(z["jax_mean_rel_l2"])
+    reset_counts(mk, ak)
+    t0 = time.perf_counter()
+    summary = load_script("select_split_stop_torch").main([
+        "--fixture", DT01_FIXTURE, "--ic-fixture", SELECT_FIXTURE, "--n-select", "1", "--stops",
+        ",".join(map(str, stops)), "--rollout-steps", str(steps), "--out",
+        os.path.join(SCRATCH, "select_split")])
+    torch.cuda.synchronize()
+    counts = read_counts(mk, ak)
+    errs = [abs(summary["selection_mean_rel_l2"][str(s)] - selection[k])
+            for k, s in enumerate(stops)] + [
+        abs(summary["eval_mean_rel_l2"][str(s)] - evaluation[k])
+        for k, s in enumerate(stops)]
+    print(f"[parallel] select_split_stop_torch (1 held-out IC, stops {stops}, "
+          f"{steps} steps) in {time.perf_counter() - t0:.1f} s: selection "
+          + " ".join(f"{summary['selection_mean_rel_l2'][str(s)]:.6f}"
+                     for s in stops)
+          + " (JAX-CPU " + " ".join(f"{v:.6f}" for v in selection)
+          + "), eval " + " ".join(f"{summary['eval_mean_rel_l2'][str(s)]:.6f}"
+                                  for s in stops)
+          + " (JAX-CPU " + " ".join(f"{v:.6f}" for v in evaluation)
+          + f"); parity {summary['parity']:.6f} (JAX-CPU {parity:.6f}); "
+          f"launches (K1-K5) {counts}", flush=True)
+    check(max(errs) <= SELECT_SCORE_TOL,
+          f"select_split scores off JAX-CPU's by {max(errs):.4f}")
+    check(abs(summary["parity"] - parity) <= SELECT_SCORE_TOL,
+          f"select_split parity {summary['parity']:.6f}")
+    # Two trajectories (the held-out IC, the standard one) per stop, each
+    # 2 K1 a step (render, forward_step) and 3 a densified step.
+    want = (2 * sum(2 * steps + 3 * s for s in stops), 0, 0, 0, 0)
+    check(counts == want, f"select_split launches {counts}, expected {want}")
+    out["select_split"] = {k: summary[k] for k in (
+        "selection_mean_rel_l2", "eval_mean_rel_l2", "parity", "heldout_stop",
+        "oracle_stop")}
+    return out
+
+
 def describe_times(times) -> str:
     return "; ".join(f"{impl} fwd {times[(impl, 'fwd')]:.4f} ms, fwd+bwd "
                      f"{times[(impl, 'bwd')]:.4f} ms"
@@ -2626,7 +3041,7 @@ def run() -> tuple:
                            "from a checkout of the repo")
     for path in (FIXTURE, TRAIN_FIXTURE, NS_FIXTURE, NS_DATA,
                  NS_TRAIN_FIXTURE, NO_MLP_FIXTURE, FIT_FIXTURE,
-                 NO_MLP_1D_FIXTURE, DT01_FIXTURE):
+                 NO_MLP_1D_FIXTURE, DT01_FIXTURE, SELECT_FIXTURE):
         check(os.path.exists(path), f"fixture {path} not found")
     sys.path.insert(0, ROOT)
 
@@ -3025,6 +3440,11 @@ def run() -> tuple:
     val = validate_phase(dev, mk, ak, card, ti, data)
     counts.update(val["counts"])
 
+    # 15. the multi-process layer: one NCCL rank, two gloo ranks, Timer
+    # and trace, select_split_stop_torch; counted
+    par = parallel_phase(dev, mk, ak, card, ti, med["auto"])
+    counts.update(par["counts"])
+
     for phase in (ns, nst, nmp, nsd):
         times["mixture_fwd"].update(phase["k1_times"])
     for phase in (nst, nmp, nsd):
@@ -3050,6 +3470,7 @@ def run() -> tuple:
         def col(key):
             return {label: v[key] for label, v in t.items()}
         bound_by = col("bound_by")
+        parallel = {**par["counts"], **par["parallel"]}
         row = {
             "name": name, "route": "cuda",
             "source": f"pigs_tpu_torch/ops/csrc/{source}",
@@ -3066,6 +3487,13 @@ def run() -> tuple:
                 counts["no_mlp_block"][i] / nmp["iters"],
             "launches_per_fit_iteration":
                 counts["fit_block"][i] / nsd["iters"],
+            "parallel": {
+                "launches_per_rank_by_path": {path: c[i] for path, c in
+                                              parallel.items()},
+                "note": "parallel_*: one NCCL rank in this process; gloo_*: "
+                        "each of two gloo ranks sharing cuda:0 (a ring call "
+                        "launches one K1 per model rank: JAX's scan one "
+                        "more)"},
             "on_main_path": any(counts[p][i] for p in (
                 "rollout", "epoch", "ns", "ns_epoch", "no_mlp_block",
                 "fit_block")),
@@ -3144,6 +3572,9 @@ def run() -> tuple:
             "no_mlp_1d_ic_fit": {k: nmp["ic_1d"][k] for k in (
                 "render", "render_at_fit_samples", "render_cpu", "fits")},
             "validate": {k: v for k, v in val.items() if k != "counts"},
+            "parallel": {k: par[k] for k in (
+                "dp_bitwise", "dp_step_ms", "gloo_dp_step_ms",
+                "select_split", "max_abs")},
             "ns_data": {k: nsd[k] for k in (
                 "generate_s", "regen_max_abs", "block_errs", "fit_s",
                 "port_fit_loss", "port_fit_t0_rel_l2", "port_fit_mean_rel_l2",

@@ -12,8 +12,21 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["build_full_covariances", "sym_inverse", "pack_symmetric",
-           "unpack_symmetric", "sym_eig2x2", "principal_axis"]
+__all__ = ["tri_size", "off_diag_size", "build_full_covariances",
+           "build_covariances", "flatten_covariances", "sym_inverse",
+           "pack_symmetric", "unpack_symmetric", "sym_eig2x2",
+           "principal_axis"]
+
+
+def tri_size(d: int) -> int:
+    """Number of independent entries of a symmetric (d, d) matrix."""
+    return d * (d + 1) // 2
+
+
+def off_diag_size(d: int) -> int:
+    """Number of strictly-lower-triangular entries (the ``transforms``
+    size)."""
+    return d * (d - 1) // 2
 
 
 def _tril_indices(d: int):
@@ -66,6 +79,20 @@ def build_full_covariances(scaling: torch.Tensor, transforms: torch.Tensor
         rows.append(torch.stack(row, dim=-1))
     cov = torch.stack(rows, dim=-2)
     return cov, sym_inverse(cov)
+
+
+def flatten_covariances(covariances: torch.Tensor, conics: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full covariances and conics -> their :func:`pack_symmetric`
+    triangles, ``(..., d*(d+1)//2)`` each."""
+    return pack_symmetric(covariances), pack_symmetric(conics)
+
+
+def build_covariances(scaling: torch.Tensor, transforms: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`build_full_covariances`, packed by
+    :func:`flatten_covariances`."""
+    return flatten_covariances(*build_full_covariances(scaling, transforms))
 
 
 def sym_inverse(a: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ from torch import nn
 
 from pigs_tpu_torch.ops.aggregate import aggregate_neighbors_factored
 
-__all__ = ["MLP", "LatentTransform", "TransformNet", "InputTransform",
+__all__ = ["WaveAct", "RBFAct", "MLP", "LatentTransform", "TransformNet", "InputTransform",
            "DynamicsNetwork", "Deltas", "HeadInputs", "default_frequencies",
            "LATENT_SIZE", "ATTENTION_HEADS", "EMBEDDING_SIZE"]
 
@@ -65,6 +65,32 @@ class HeadInputs(NamedTuple):
     keys: torch.Tensor
     frequencies: torch.Tensor
     distance_transform: torch.Tensor
+
+
+class WaveAct(nn.Module):
+    """Learned ``w1 sin(x) + w2 cos(x)`` activation (part of the API; the
+    default network uses tanh).  ``w1``, ``w2`` start at one."""
+
+    def __init__(self):
+        super().__init__()
+        self.w1 = nn.Parameter(torch.ones(1))
+        self.w2 = nn.Parameter(torch.ones(1))
+
+    def forward(self, x):
+        return self.w1 * torch.sin(x) + self.w2 * torch.cos(x)
+
+
+class RBFAct(nn.Module):
+    """Gaussian radial activation ``exp(-b (x - c)^2)``; ``b`` starts at one
+    and ``c (in_dim,)`` at zero."""
+
+    def __init__(self, in_dim: int):
+        super().__init__()
+        self.b = nn.Parameter(torch.ones(1))
+        self.c = nn.Parameter(torch.zeros(in_dim))
+
+    def forward(self, x):
+        return torch.exp(-self.b * (x - self.c) ** 2)
 
 
 class MLP(nn.Module):

@@ -31,7 +31,7 @@ from pigs_tpu_torch.pde import (IntegrationRule, PDECoefficients, Problem,
 
 __all__ = ["LossWeights", "ModelConfig", "StepFields", "Losses",
            "make_network", "make_initial_state", "grid_state_dynamic",
-           "randomize_state_dynamic", "sample_fields", "network_inputs",
+           "randomize_state", "randomize_state_dynamic", "sample_fields", "network_inputs",
            "forward_step",
            "adaptive_split", "peak_vorticity_contribution", "compute_loss"]
 
@@ -237,6 +237,43 @@ def _randomize_test(cfg: ModelConfig, draws: Sequence[float],
     return state._replace(means=means, u=u)
 
 
+def _test_draws(generator: torch.Generator) -> list:
+    """TEST's five U[0, 1) draws, on the generator's device."""
+    return torch.rand(5, generator=generator, dtype=torch.float64,
+                      device=generator.device).tolist()
+
+
+def _ic_noise_draws(cfg: ModelConfig, generator: torch.Generator,
+                    state: MixtureState) -> list:
+    """Four standard-normal tensors shaped like ``(means, u, scaling,
+    transforms)``, drawn on the generator's device and moved to the
+    state's."""
+    return [torch.randn(x.shape, generator=generator, dtype=cfg.dtype,
+                        device=generator.device).to(state.means.device)
+            for x in (state.means, state.u, state.scaling, state.transforms)]
+
+
+def randomize_state(cfg: ModelConfig, generator: Optional[torch.Generator],
+                    n: int, draws: Optional[Sequence] = None,
+                    device=None) -> MixtureState:
+    """Domain-randomized IC: the ``n x n`` grid of
+    ``make_initial_state(cfg, n)`` with noise on means, values, scalings and
+    transforms (TEST: the 6-Gaussian line moved, with a random value).
+
+    The draws come from ``generator`` unless given: four standard-normal
+    tensors shaped like ``(means, u, scaling, transforms)`` (TEST: five
+    U[0, 1) numbers), so that tests can hand in the JAX package's."""
+    if cfg.problem == Problem.TEST:
+        return _randomize_test(
+            cfg, _test_draws(generator) if draws is None else draws, device)
+    state = make_initial_state(cfg, n=n, device=device)
+    if draws is None:
+        draws = _ic_noise_draws(cfg, generator, state)
+    return _apply_ic_noise(cfg, state, [
+        torch.as_tensor(x, dtype=cfg.dtype, device=state.means.device)
+        for x in draws])
+
+
 def grid_state_dynamic(cfg: ModelConfig, n: int, n_max: int,
                        device=None) -> MixtureState:
     """Noise-free ``n x n`` grid IC laid out over ``n_max^2`` interior slots:
@@ -298,14 +335,9 @@ def randomize_state_dynamic(cfg: ModelConfig, generator: torch.Generator,
     with noise on means, values, scalings and transforms (TEST: the moved
     6-Gaussian line), drawn from ``generator``."""
     if cfg.problem == Problem.TEST:
-        draws = torch.rand(5, generator=generator, dtype=torch.float64,
-                           device=generator.device).tolist()
-        return _randomize_test(cfg, draws, device)
+        return _randomize_test(cfg, _test_draws(generator), device)
     state = grid_state_dynamic(cfg, n, n_max, device)
-    draws = [torch.randn(x.shape, generator=generator, dtype=cfg.dtype,
-                         device=generator.device).to(device)
-             for x in (state.means, state.u, state.scaling, state.transforms)]
-    return _apply_ic_noise(cfg, state, draws)
+    return _apply_ic_noise(cfg, state, _ic_noise_draws(cfg, generator, state))
 
 
 class StepFields(NamedTuple):

@@ -19,7 +19,8 @@ import torch
 from pigs_tpu_torch.ops.mixture_kernel import eval_mixture_fused
 from pigs_tpu_torch.ops.oracle import MixtureFields, eval_mixture_dense
 
-__all__ = ["eval_mixture", "eval_mixture_image", "embed_d1"]
+__all__ = ["eval_mixture", "eval_mixture_region", "eval_mixture_image",
+           "embed_d1"]
 
 
 def embed_d1(means, conics, samples):
@@ -92,6 +93,20 @@ def eval_mixture(
     return MixtureFields(*[
         None if parts[0] is None else torch.cat(parts)
         for parts in zip(*blocks)])
+
+
+def eval_mixture_region(means, conics, values, center, size: int, dx: float,
+                        order: int = 0, mask=None, period=None
+                        ) -> MixtureFields:
+    """Evaluate on the ``size^d`` grid of offsets (:func:`region_kernel`)
+    around ``center``."""
+    from pigs_tpu_torch.utils.sampling import region_kernel
+    d = means.shape[-1]
+    offsets = region_kernel(size, dx, d, dtype=means.dtype,
+                            device=means.device)
+    center = torch.as_tensor(center, dtype=means.dtype, device=means.device)
+    return eval_mixture(means, conics, values, center.reshape(1, d) + offsets,
+                        order=order, mask=mask, period=period)
 
 
 def eval_mixture_image(means, conics, values, res: int, scale: float = 1.0,

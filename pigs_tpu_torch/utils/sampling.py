@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["grid_samples", "image_samples", "collocation_samples",
-           "boundary_band_samples"]
+__all__ = ["grid_samples", "image_samples", "region_kernel",
+           "collocation_samples", "boundary_band_samples"]
 
 
 def grid_samples(res: int, d: int, scale: float = 1.0,
@@ -33,6 +33,16 @@ def image_samples(res: int, scale: float = 1.0, dtype=torch.float32,
                                    device=device), dims=(0,)) * scale
     gx, gy = torch.meshgrid(tx, ty, indexing="xy")
     return torch.stack((gx, gy), dim=-1).reshape(res * res, 2)
+
+
+def region_kernel(size: int, dx: float, d: int, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """A ``size^d`` grid of offsets centred at zero, spacing ``dx``,
+    ``(size^d, d)``, with ``xy`` indexing."""
+    half = (size - 1) / 2.0
+    t = torch.linspace(-half, half, size, dtype=dtype, device=device) * dx
+    mesh = torch.meshgrid(*[t] * d, indexing="xy")
+    return torch.stack(mesh, dim=-1).reshape(-1, d)
 
 
 def _uniform(generator: torch.Generator, shape, dtype, device):

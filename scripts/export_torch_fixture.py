@@ -164,6 +164,21 @@ phase 12d's score).  It writes:
   draws_base, draws_time  (5, 100, 128, 1), (5, 100, 128): seed 0's first
                         five blocks of draws (jax_block_draws), float32
 
+``--kind select-split`` writes the JAX references of
+scripts/select_split_stop.py for scripts/select_split_stop_torch.py:
+
+  ic_means, ic_scaling, ic_transforms, ic_u, ic_active, ic_boundary
+                        (3, capacity, ...) ``randomize_state(cfg,
+                        PRNGKey(100 + k), n=20)`` for k < 3, the held-out
+                        ICs the JAX script draws (float32)
+  <case>_stops, <case>_steps, <case>_selection, <case>_eval
+                        select_split_stop.py run on the JAX CPU with one
+                        held-out IC (--n-select 1) at each case's stops and
+                        rollout steps: the selection score of each stop (the
+                        one IC's mean rel-L2) and the standard IC's score;
+                        cases ``smoke`` (stops 0, 8, 14; 50 steps) and
+                        ``test`` (stops 0, 8; 5 steps)
+
 ``--params raw`` (rollout) exports a checkpoint's raw parameters where it
 carries no EMA (artifacts/burgers_dt01_ckpt_30000); ``config_params`` says
 which were exported.
@@ -181,6 +196,7 @@ Examples:
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind no-mlp
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind fit
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind no-mlp-1d
+  JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --kind select-split
   JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py --params raw \
       --ckpt artifacts/burgers_dt01_ckpt_30000 \
       --out artifacts/burgers_dt01_torch.npz
@@ -189,6 +205,7 @@ Examples:
 import argparse
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 
@@ -1051,16 +1068,60 @@ def export_no_mlp_1d(out: str):
     print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 
+# scripts/select_split_stop.py's held-out ICs (--seed 100, --n-select 3) and
+# the reduced argument sets the port is checked at: name -> (stops, steps).
+SELECT_SEED, SELECT_ICS = 100, 3
+SELECT_CASES = {"smoke": ("0,8,14", 50), "test": ("0,8", 5)}
+
+
+def export_select_split(ckpt: str, out: str):
+    """Write the select-split fixture (see the module docstring)."""
+    import json
+
+    import jax
+    import numpy as np
+
+    from pigs_tpu.models.model import randomize_state
+    cfg = flagship_config()
+    states = [randomize_state(cfg, jax.random.PRNGKey(SELECT_SEED + k), n=NX)
+              for k in range(SELECT_ICS)]
+    arrays = {f"ic_{f}": np.stack([np.asarray(getattr(s, f)) for s in states])
+              for f in states[0]._fields}
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "select_split_stop.py")
+    for case, (stops, steps) in SELECT_CASES.items():
+        with tempfile.TemporaryDirectory() as td:
+            subprocess.run([sys.executable, script, "--ckpt", ckpt,
+                            "--n-select", "1", "--stops", stops,
+                            "--rollout-steps", str(steps), "--seed",
+                            str(SELECT_SEED), "--out", td], check=True)
+            with open(os.path.join(td, "summary.json")) as f:
+                summary = json.load(f)
+        keys = [str(k) for k in summary["stops"]]
+        arrays[f"{case}_stops"] = np.asarray(summary["stops"])
+        arrays[f"{case}_steps"] = np.asarray(steps)
+        arrays[f"{case}_selection"] = np.asarray(
+            [summary["selection_mean_rel_l2"][k] for k in keys])
+        arrays[f"{case}_eval"] = np.asarray(
+            [summary["eval_mean_rel_l2"][k] for k in keys])
+        print(f"{case}: selection {arrays[f'{case}_selection']}, eval "
+              f"{arrays[f'{case}_eval']}", flush=True)
+    np.savez_compressed(out, **arrays)
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--kind", choices=["rollout", "train", "ns", "ns-train",
-                                      "no-mlp", "no-mlp-1d", "fit"],
+                                      "no-mlp", "no-mlp-1d", "fit",
+                                      "select-split"],
                    default="rollout")
     p.add_argument("--ckpt", default=None,
                    help="default: artifacts/burgers_ns4096_ema2_ckpt_30000 "
-                        "(rollout, train) or artifacts/ns_vorttrain_ckpt_20000 "
-                        "(ns, ns-train)")
+                        "(rollout, train), artifacts/ns_vorttrain_ckpt_20000 "
+                        "(ns, ns-train) or artifacts/burgers_dt01_ckpt_30000 "
+                        "(select-split)")
     p.add_argument("--params", choices=["ema", "raw"], default="ema",
                    help="rollout: the checkpoint's EMA params, or its raw "
                         "ones for a checkpoint without an EMA "
@@ -1072,9 +1133,14 @@ def main():
                         "artifacts/ns_vorttrain_torch.npz (ns), "
                         "artifacts/ns_vorttrain_train_torch.npz (ns-train) "
                         "artifacts/no_mlp_torch.npz (no-mlp), "
-                        "artifacts/no_mlp_1d_torch.npz (no-mlp-1d) or "
-                        "artifacts/fit_torch.npz (fit)")
+                        "artifacts/no_mlp_1d_torch.npz (no-mlp-1d), "
+                        "artifacts/fit_torch.npz (fit) or "
+                        "artifacts/select_split_torch.npz (select-split)")
     args = p.parse_args()
+    if args.kind == "select-split":
+        export_select_split(args.ckpt or "artifacts/burgers_dt01_ckpt_30000",
+                            args.out or "artifacts/select_split_torch.npz")
+        return
     if args.kind == "fit":
         export_fit(args.ns_data, args.out or "artifacts/fit_torch.npz")
         return

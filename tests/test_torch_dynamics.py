@@ -126,3 +126,30 @@ def test_seeded_init_is_flax_like_and_reproducible():
             assert value.abs().max() <= 2.0 * std + 1e-6
         else:  # raw attention params, U[0, 2)
             assert value.min() >= 0.0 and value.max() < 2.0
+
+
+@pytest.mark.parametrize("act", ["wave", "rbf"])
+def test_activations_match_flax(act):
+    """WaveAct and RBFAct: flax's initial values, then random parameters
+    carried across, on the same inputs (rtol 1e-12)."""
+    from pigs_tpu.models.dynamics import RBFAct as JRBF
+    from pigs_tpu.models.dynamics import WaveAct as JWave
+    from pigs_tpu_torch.models.dynamics import RBFAct, WaveAct
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(11, 4))
+    jmod, tmod = (JWave(), WaveAct()) if act == "wave" else (JRBF(in_dim=4),
+                                                            RBFAct(4))
+    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    for name, value in params.items():
+        np.testing.assert_array_equal(getattr(tmod, name).detach().numpy(),
+                                      np.asarray(value))
+    params = {k: jnp.asarray(rng.normal(size=v.shape)) for k, v in
+              params.items()}
+    tmod = tmod.double()
+    with torch.no_grad():
+        for name, value in params.items():
+            getattr(tmod, name).copy_(torch.from_numpy(np.array(value)))
+    want = jmod.apply({"params": params}, jnp.asarray(x))
+    got = tmod(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-12)

@@ -42,6 +42,25 @@ def test_build_full_covariances(d):
     np.testing.assert_allclose((tc @ tk).numpy(), eye, atol=1e-10)
 
 
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_packed_covariances(d):
+    assert (tg.tri_size(d), tg.off_diag_size(d)) == (jg.tri_size(d),
+                                                     jg.off_diag_size(d))
+    rng = np.random.default_rng(10 + d)
+    scaling = np.exp(rng.normal(size=(7, d)) * 0.3 - 2.0)
+    transforms = rng.normal(size=(7, d * (d - 1) // 2))
+    want = jg.build_covariances(jnp.asarray(scaling), jnp.asarray(transforms))
+    got = tg.build_covariances(t(scaling), t(transforms))
+    for g, w in zip(got, want):
+        assert g.shape == (7, tg.tri_size(d))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL)
+    cov, con = tg.build_full_covariances(t(scaling), t(transforms))
+    for g, w in zip(tg.flatten_covariances(cov, con),
+                    jg.flatten_covariances(jnp.asarray(cov.numpy()),
+                                           jnp.asarray(con.numpy()))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_init_state_and_covariance_of():
     rng = np.random.default_rng(0)
     arrays = [rng.normal(size=(7, 2)), np.exp(rng.normal(size=(7, 2))),
@@ -78,6 +97,16 @@ def test_samplers(res):
     if res > 1:
         assert img[0, 0, 1] == 1.5
     assert (img[:, :, 0] == img[0, :, 0]).all()
+
+
+@pytest.mark.parametrize("size,dx,d", [(1, 0.1, 2), (4, 0.05, 2),
+                                       (5, 0.2, 1), (3, 0.1, 3)])
+def test_region_kernel(size, dx, d):
+    want = jsampling.region_kernel(size, dx, d, dtype=jnp.float64)
+    got = tsampling.region_kernel(size, dx, d, dtype=torch.float64)
+    assert got.shape == (size ** d, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=1e-15)
 
 
 @pytest.mark.parametrize("problem", list(tpde.Problem),

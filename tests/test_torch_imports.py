@@ -19,7 +19,8 @@ PORT_FILES = sorted((ROOT / "pigs_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "solve_no_mlp_torch.py",
     ROOT / "scripts" / "validate_no_mlp_2d_torch.py",
     ROOT / "scripts" / "aggregate_balance_torch.py",
-    ROOT / "scripts" / "initialize_torch.py"]
+    ROOT / "scripts" / "initialize_torch.py",
+    ROOT / "scripts" / "select_split_stop_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pigs_tpu")
 
 
@@ -48,7 +49,10 @@ def test_scan_sees_the_package():
             "validate_pn_torch.py", "plot_rollout_torch.py", "plotting.py",
             "validate_ns_torch.py", "fd.py", "no_mlp.py", "card.py",
             "solve_no_mlp_torch.py", "validate_no_mlp_2d_torch.py",
-            "fit.py", "ns_data.py", "initialize_torch.py"} <= names
+            "fit.py", "ns_data.py", "initialize_torch.py", "profiling.py",
+            "launch.py", "mesh.py", "sharded.py",
+            "select_split_stop_torch.py"} <= names
+    assert ROOT / "pigs_tpu_torch" / "parallel" / "train.py" in PORT_FILES
     assert ROOT / "pigs_tpu_torch" / "native" / "__init__.py" in PORT_FILES
 
 

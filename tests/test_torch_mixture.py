@@ -24,7 +24,8 @@ from pigs_tpu.ops.oracle import eval_mixture_dense as j_dense
 from pigs_tpu.ops.pallas_mixture import eval_mixture_pallas
 from pigs_tpu_torch.gaussians import build_full_covariances
 from pigs_tpu_torch.ops import mixture_kernel
-from pigs_tpu_torch.ops.mixture import eval_mixture, eval_mixture_image
+from pigs_tpu_torch.ops.mixture import (eval_mixture, eval_mixture_image,
+                                        eval_mixture_region)
 from pigs_tpu_torch.ops.oracle import eval_mixture_dense
 
 F64_RTOL = 1e-10
@@ -149,6 +150,21 @@ def test_eval_mixture_image_matches_jax():
     assert got.shape == (9, 9, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F64_RTOL,
                                atol=1e-14)
+
+
+@pytest.mark.parametrize("d,order", [(2, 2), (1, 1)])
+def test_eval_mixture_region_matches_jax(d, order):
+    means, conics, values, _, mask = make(31, c=2, d=d)
+    center = np.full(d, 0.15)
+    want = jmixture.eval_mixture_region(
+        *map(jnp.asarray, (means, conics, values)), center, size=5, dx=0.07,
+        order=order, mask=jnp.asarray(mask))
+    got = eval_mixture_region(*[torch.from_numpy(x) for x in
+                                (means, conics, values)], center, size=5,
+                              dx=0.07, order=order,
+                              mask=torch.from_numpy(mask))
+    assert got.u.shape == (5 ** d, 2)
+    fields_close(got, want)
 
 
 def test_cpu_route_never_counts_a_launch():

@@ -102,3 +102,29 @@ def test_forward_step(name):
     # Boundary Gaussians never move.
     b = ts.boundary
     assert torch.equal(tnew.means[b], ts.means[b])
+
+
+@pytest.mark.parametrize("name", ["BURGERS", "TEST"])
+def test_randomize_state_with_jax_draws(name):
+    """The static randomized IC on the JAX package's own draws: four normals
+    shaped like the state (BURGERS at n=5, not the config's nx), or five
+    uniforms (TEST)."""
+    jcfg, tcfg = configs(name)
+    key = jax.random.PRNGKey(9)
+    want = jmodel.randomize_state(jcfg, key, n=5)
+    ks = jax.random.split(key, 8)
+    if name == "TEST":
+        draws = [float(jax.random.uniform(k)) for k in ks[:5]]
+    else:
+        base = jmodel.make_initial_state(jcfg, n=5)
+        draws = [np.array(jax.random.normal(k, x.shape, jnp.float64))
+                 for k, x in zip(ks, (base.means, base.u, base.scaling,
+                                      base.transforms))]
+    got = tmodel.randomize_state(tcfg, None, n=5, draws=draws)
+    for field in want._fields:
+        close(getattr(got, field), getattr(want, field))
+    # Drawn from a generator instead: the same layout, noise on the interior.
+    drawn = tmodel.randomize_state(tcfg, torch.Generator().manual_seed(0),
+                                   n=5)
+    assert torch.equal(drawn.active, got.active)
+    assert not torch.equal(drawn.means, got.means)

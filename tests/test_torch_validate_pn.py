@@ -14,6 +14,9 @@ training and plotting entry points, against the JAX package (CPU).
 * One whole CPU run of validate_pn_torch (TEST, nx 6, 2 epochs, 3 rollout
   steps, res 16) writing validate_pn.py's summary keys and files; then
   plot_rollout_torch on its directory, and one train_pn_torch run.
+* scripts/select_split_stop_torch.py at one held-out IC, stops 0 and 8 and
+  5 steps, against select_split_stop.py's JAX-CPU scores stored in
+  artifacts/select_split_torch.npz (within 1e-4).
 """
 
 import importlib.util
@@ -246,3 +249,29 @@ def test_train_pn_torch_run_scores_against_gt(tmp_path):
     assert sorted(p.name for p in out.glob("frame*.png")) == [
         f"frame{i}.png" for i in range(3)]
     assert json.loads((out / "summary.json").read_text())["device"] == "cpu"
+
+
+def test_select_split_stop_torch_matches_jax(tmp_path):
+    """scripts/select_split_stop_torch.py on one of JAX's held-out ICs at
+    stops 0 and 8 over 5 steps: every selection and evaluation score within
+    1e-4 of select_split_stop.py's JAX-CPU scores at the same arguments
+    (artifacts/select_split_torch.npz), and its summary keys."""
+    fixture = ROOT / "artifacts" / "select_split_torch.npz"
+    with np.load(fixture) as z:
+        stops, steps = z["test_stops"].tolist(), int(z["test_steps"])
+        selection, evaluation = z["test_selection"], z["test_eval"]
+    summary = load_script("select_split_stop_torch").main([
+        "--device", "cpu", "--ic-fixture", str(fixture), "--n-select", "1",
+        "--stops", ",".join(map(str, stops)), "--rollout-steps", str(steps),
+        "--out", str(tmp_path)])
+    assert json.loads((tmp_path / "summary.json").read_text()) == summary
+    assert {"problem", "ckpt", "stops", "selection_mean_rel_l2",
+            "heldout_stop", "eval_mean_rel_l2", "parity", "heldout",
+            "oracle_stop", "oracle", "wall_s"} <= set(summary)
+    for k, stop in enumerate(stops):
+        assert abs(summary["selection_mean_rel_l2"][str(stop)]
+                   - selection[k]) <= STORED_TOL
+        assert abs(summary["eval_mean_rel_l2"][str(stop)]
+                   - evaluation[k]) <= STORED_TOL
+    assert summary["parity"] == summary["eval_mean_rel_l2"]["0"]
+    assert summary["heldout_stop"] == stops[int(np.argmin(selection))]
