@@ -28,6 +28,7 @@ from pigs_tpu_torch.ops.aggregate import neighbor_mask
 from pigs_tpu_torch.ops.mixture import eval_mixture
 from pigs_tpu_torch.pde import (IntegrationRule, PDECoefficients, Problem,
                                 channels, pde_rhs, pde_size, time_integrate)
+from pigs_tpu_torch.utils.profiling import span
 
 __all__ = ["LossWeights", "ModelConfig", "StepFields", "Losses",
            "make_network", "make_initial_state", "grid_state_dynamic",
@@ -417,20 +418,24 @@ def forward_step(cfg: ModelConfig, network: DynamicsNetwork,
                  ) -> Tuple[MixtureState, Deltas]:
     """One dynamics timestep: sample the mixture at the means, predict the
     deltas, and apply them to the interior Gaussians."""
-    deltas = network(*network_inputs(cfg, state, t), cfg.period)
+    with span("network"):
+        with span("network.inputs"):
+            inputs = network_inputs(cfg, state, t)
+        with span("network.forward"):
+            deltas = network(*inputs, cfg.period)
 
-    gate = state.interior[:, None].to(cfg.dtype)
-    means = state.means + deltas.dmeans * gate
-    scaling = state.scaling * torch.exp(deltas.dscaling * gate)
-    transforms = state.transforms + deltas.dtransforms * gate
-    u = state.u + deltas.du * gate
-    if cfg.period is not None:
-        # Keep interior means inside the fundamental domain.
-        means = torch.where(state.interior[:, None],
-                            means - cfg.period * torch.round(means / cfg.period),
-                            means)
-    return state._replace(means=means, scaling=scaling, transforms=transforms,
-                          u=u), deltas
+        gate = state.interior[:, None].to(cfg.dtype)
+        means = state.means + deltas.dmeans * gate
+        scaling = state.scaling * torch.exp(deltas.dscaling * gate)
+        transforms = state.transforms + deltas.dtransforms * gate
+        u = state.u + deltas.du * gate
+        if cfg.period is not None:
+            # Keep interior means inside the fundamental domain.
+            means = torch.where(
+                state.interior[:, None],
+                means - cfg.period * torch.round(means / cfg.period), means)
+        return state._replace(means=means, scaling=scaling,
+                              transforms=transforms, u=u), deltas
 
 
 def _density_rank(cfg: ModelConfig, state: MixtureState, conics):

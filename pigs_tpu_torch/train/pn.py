@@ -45,6 +45,7 @@ from pigs_tpu_torch.models.state import MixtureState, covariance_of, init_state
 from pigs_tpu_torch.ops.mixture import eval_mixture
 from pigs_tpu_torch.pde import Problem
 from pigs_tpu_torch.train.optim import AdamState, adam_init, adam_update
+from pigs_tpu_torch.utils.profiling import span
 from pigs_tpu_torch.utils.sampling import (boundary_band_samples,
                                            collocation_samples, image_samples)
 
@@ -171,11 +172,13 @@ def pn_step(cfg: ModelConfig, network, opt_state: AdamState,
         cfg, network, state, prev_fields, samples, time_samples, bc_samples,
         t, dt, recon_target=recon_target, recon_weight=recon_weight,
         initial_fields=initial_fields, initial_gate=initial_gate)
-    opt_state = adam_update(list(network.parameters()), grads, opt_state,
-                            base_lr * loss_weight, clip_norm=clip_norm,
-                            skip_nonfinite=skip_nonfinite)
-    new_loss_weight = torch.clamp(loss_weight * torch.exp(-epsilon * total),
-                                  min=loss_weight_floor)
+    with span("step.adam"):
+        opt_state = adam_update(list(network.parameters()), grads,
+                                opt_state, base_lr * loss_weight,
+                                clip_norm=clip_norm,
+                                skip_nonfinite=skip_nonfinite)
+        new_loss_weight = torch.clamp(
+            loss_weight * torch.exp(-epsilon * total), min=loss_weight_floor)
     return opt_state, new_state, curr, losses, total, new_loss_weight
 
 
@@ -197,20 +200,26 @@ def pn_loss_grads(cfg: ModelConfig, network, state: MixtureState,
     """
     with torch.enable_grad():
         new_state, deltas = forward_step(cfg, network, state, t=t)
-        curr = sample_fields(cfg, new_state, samples, bc_samples)
-        losses = compute_loss(cfg, new_state, deltas, prev_fields, curr,
-                              samples, time_samples, t, dt,
-                              initial_fields=initial_fields)
-        if initial_fields is not None and initial_gate is not None:
-            losses = losses._replace(initial=losses.initial * initial_gate)
-        losses = _filter_finite(losses)
-        total = losses.total
-        if recon_target is not None:
-            recon = recon_weight * torch.mean((curr.w - recon_target) ** 2)
-            total = total + torch.where(torch.isfinite(recon), recon,
-                                        torch.zeros_like(recon))
-        grads = torch.autograd.grad(total, list(network.parameters()),
-                                    allow_unused=True, materialize_grads=True)
+        with span("step.fields"):
+            curr = sample_fields(cfg, new_state, samples, bc_samples)
+        with span("step.loss"):
+            losses = compute_loss(cfg, new_state, deltas, prev_fields, curr,
+                                  samples, time_samples, t, dt,
+                                  initial_fields=initial_fields)
+            if initial_fields is not None and initial_gate is not None:
+                losses = losses._replace(
+                    initial=losses.initial * initial_gate)
+            losses = _filter_finite(losses)
+            total = losses.total
+            if recon_target is not None:
+                recon = recon_weight * torch.mean(
+                    (curr.w - recon_target) ** 2)
+                total = total + torch.where(torch.isfinite(recon), recon,
+                                            torch.zeros_like(recon))
+        with span("step.backward"):
+            grads = torch.autograd.grad(total, list(network.parameters()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
     return (_detach_state(new_state), curr.detach(),
             Losses(*(x.detach() for x in losses)), total.detach(), grads)
 
@@ -252,26 +261,32 @@ def pn_epoch(cfg: ModelConfig, network, opt_state: AdamState,
                              cfg.dtype, device)
     per_step, active = [], []
     for i in range(n_steps):
-        if noise_std > 0:
-            with torch.no_grad():
-                gate = state.interior[:, None].to(cfg.dtype)
-                state = state._replace(u=state.u + noise_std * noise[i] * gate)
-                prev_fields = sample_fields(cfg, state, samples, bc_samples)
-        opt_state, new_state, new_prev, losses, total, loss_weight = pn_step(
-            cfg, network, opt_state, state, prev_fields, samples,
-            time_samples, bc_samples, loss_weight, base_lr, epsilon, i * dt,
-            dt, loss_weight_floor=loss_weight_floor, clip_norm=clip_norm,
-            skip_nonfinite=skip_nonfinite,
-            recon_target=None if recon_targets is None else recon_targets[i])
-        per_step.append(torch.stack([losses.pde, losses.bc,
-                                     losses.conservation, losses.initial,
-                                     losses.magnitude, total]))
-        if do_split:
-            with torch.no_grad():
-                new_state = adaptive_split(cfg, new_state, state)
-                new_prev = sample_fields(cfg, new_state, samples, bc_samples)
-        state, prev_fields = new_state, new_prev
-        active.append(state.active)
+        with span("step"):
+            if noise_std > 0:
+                with torch.no_grad():
+                    gate = state.interior[:, None].to(cfg.dtype)
+                    state = state._replace(
+                        u=state.u + noise_std * noise[i] * gate)
+                    prev_fields = sample_fields(cfg, state, samples,
+                                                bc_samples)
+            (opt_state, new_state, new_prev, losses, total,
+             loss_weight) = pn_step(
+                cfg, network, opt_state, state, prev_fields, samples,
+                time_samples, bc_samples, loss_weight, base_lr, epsilon,
+                i * dt, dt, loss_weight_floor=loss_weight_floor,
+                clip_norm=clip_norm, skip_nonfinite=skip_nonfinite,
+                recon_target=None if recon_targets is None
+                else recon_targets[i])
+            per_step.append(torch.stack([losses.pde, losses.bc,
+                                         losses.conservation, losses.initial,
+                                         losses.magnitude, total]))
+            if do_split:
+                with span("step.split"), torch.no_grad():
+                    new_state = adaptive_split(cfg, new_state, state)
+                    new_prev = sample_fields(cfg, new_state, samples,
+                                             bc_samples)
+            state, prev_fields = new_state, new_prev
+            active.append(state.active)
     return EpochResult(opt_state, state, prev_fields,
                        torch.stack(per_step) if per_step else
                        samples.new_zeros((0, 6)),
@@ -349,50 +364,56 @@ def train_epoch(cfg: ModelConfig, tcfg: TrainConfig, network,
     n_steps)``; the totals leave the reconstruction term out, the
     curriculum's sufficiency test reads it.  The only host sync is reading
     the per-step losses at the end."""
-    d, scale, dtype, m = cfg.d, cfg.scale, cfg.dtype, tcfg.n_samples
-    samples = collocation_samples(generator, m, d, scale, dtype, device)
-    time_samples = torch.rand(m, generator=generator, dtype=dtype,
-                              device=generator.device).to(device)
-    bc_samples = boundary_band_samples(generator, m, scale, dtype, device)
-    data_index = None
-    if cfg.problem == Problem.NAVIER_STOKES and ns_data is not None:
-        data_index = int(torch.randint(0, ns_data.means.shape[0], (),
-                                       generator=generator,
-                                       device=generator.device))
-        state = ns_data.state_for(cfg, data_index)
-    else:
-        n_max = _n_max(cfg)
-        n = min(int(torch.randint(15, 40, (), generator=generator,
-                                  device=generator.device)), n_max)
-        state = randomize_state_dynamic(cfg, generator, n, n_max, device)
-    if tcfg.adaptive_sampling > 0:
-        samples = importance_samples(cfg, generator, m, state,
-                                     tcfg.adaptive_sampling)
-    with torch.no_grad():
-        prev_fields = sample_fields(cfg, state, samples, bc_samples)
+    with span("epoch"):
+        with span("epoch.draws"):
+            d, scale, dtype, m = cfg.d, cfg.scale, cfg.dtype, tcfg.n_samples
+            samples = collocation_samples(generator, m, d, scale, dtype,
+                                          device)
+            time_samples = torch.rand(m, generator=generator, dtype=dtype,
+                                      device=generator.device).to(device)
+            bc_samples = boundary_band_samples(generator, m, scale, dtype,
+                                               device)
+            data_index = None
+            if cfg.problem == Problem.NAVIER_STOKES and ns_data is not None:
+                data_index = int(torch.randint(0, ns_data.means.shape[0], (),
+                                               generator=generator,
+                                               device=generator.device))
+                state = ns_data.state_for(cfg, data_index)
+            else:
+                n_max = _n_max(cfg)
+                n = min(int(torch.randint(15, 40, (), generator=generator,
+                                          device=generator.device)), n_max)
+                state = randomize_state_dynamic(cfg, generator, n, n_max,
+                                                device)
+            if tcfg.adaptive_sampling > 0:
+                samples = importance_samples(cfg, generator, m, state,
+                                             tcfg.adaptive_sampling)
+            with torch.no_grad():
+                prev_fields = sample_fields(cfg, state, samples, bc_samples)
 
-    n_steps = min(min(epoch // tcfg.bootstrap_rate + 1, current_timesteps),
-                  tcfg.train_timesteps)
-    recon_targets = None
-    if data_index is not None and n_steps > 0:
-        recon_targets = torch.stack([
-            ns_data.recon_target(data_index, i + 1, samples)
-            for i in range(n_steps)]).to(dtype)
-    res = pn_epoch(cfg, network, opt_state, state, prev_fields, samples,
-                   time_samples, bc_samples, tcfg.base_lr_at(epoch),
-                   tcfg.epsilon, tcfg.dt, n_steps,
-                   loss_weight_floor=tcfg.loss_weight_floor,
-                   do_split=epoch > tcfg.split_epoch,
-                   clip_norm=tcfg.clip_norm,
-                   skip_nonfinite=tcfg.skip_nonfinite_updates,
-                   recon_targets=recon_targets, noise_std=tcfg.noise_std,
-                   generator=generator)
-    per_step = res.per_step.cpu().numpy()
-    totals = per_step[:, :5].sum(axis=0)
-    if bool((per_step[:, 5] < 1.0).all()):
-        current_timesteps = min(epoch // tcfg.bootstrap_rate + 1,
-                                current_timesteps) + 1
-    return res.opt_state, totals, current_timesteps, n_steps
+            n_steps = min(min(epoch // tcfg.bootstrap_rate + 1,
+                              current_timesteps), tcfg.train_timesteps)
+            recon_targets = None
+            if data_index is not None and n_steps > 0:
+                recon_targets = torch.stack([
+                    ns_data.recon_target(data_index, i + 1, samples)
+                    for i in range(n_steps)]).to(dtype)
+        res = pn_epoch(cfg, network, opt_state, state, prev_fields, samples,
+                       time_samples, bc_samples, tcfg.base_lr_at(epoch),
+                       tcfg.epsilon, tcfg.dt, n_steps,
+                       loss_weight_floor=tcfg.loss_weight_floor,
+                       do_split=epoch > tcfg.split_epoch,
+                       clip_norm=tcfg.clip_norm,
+                       skip_nonfinite=tcfg.skip_nonfinite_updates,
+                       recon_targets=recon_targets, noise_std=tcfg.noise_std,
+                       generator=generator)
+        with span("epoch.read"):
+            per_step = res.per_step.cpu().numpy()
+        totals = per_step[:, :5].sum(axis=0)
+        if bool((per_step[:, 5] < 1.0).all()):
+            current_timesteps = min(epoch // tcfg.bootstrap_rate + 1,
+                                    current_timesteps) + 1
+        return res.opt_state, totals, current_timesteps, n_steps
 
 
 class TrainResult(NamedTuple):
@@ -408,8 +429,9 @@ class TrainResult(NamedTuple):
 @torch.no_grad()
 def _ema_update(ema: List[torch.Tensor], params, decay: float) -> None:
     """``ema = decay * ema + (1 - decay) * params``, in place."""
-    torch._foreach_mul_(ema, decay)
-    torch._foreach_add_(ema, list(params), alpha=1.0 - decay)
+    with span("ema"):
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, list(params), alpha=1.0 - decay)
 
 
 def train(cfg: ModelConfig, tcfg: TrainConfig,
@@ -456,18 +478,12 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     window = np.zeros(5)
     window_steps = 0
     poisoned_streak = 0
-    timing_logged = 0
-    epoch_t0 = time.time()
     for epoch in range(start_epoch, tcfg.n_epochs):
         opt_state, totals, current_timesteps, n_steps = train_epoch(
             cfg, tcfg, network, opt_state, generator, epoch,
             current_timesteps, device, ns_data=ns_data)
         if use_ema:
             _ema_update(ema, params, tcfg.ema_decay)
-        if timing_logged < 3:
-            log_fn(f"[timing] epoch {epoch}: {time.time() - epoch_t0:.1f} s")
-            epoch_t0 = time.time()
-            timing_logged += 1
         window += totals
         window_steps += int(n_steps)
         if (epoch + 1) % tcfg.log_step == 0:
@@ -505,20 +521,28 @@ def rollout_frames(cfg: ModelConfig, network, state: MixtureState,
     order 0 on the image grid with mask = interior, then calls
     :func:`forward_step` at ``t = i * dt``; the first ``densify`` steps then
     apply :func:`adaptive_split` against the state they started from."""
-    samples = image_samples(res, cfg.scale, cfg.dtype, state.means.device)
-    frames = []
-    with torch.inference_mode():
-        for i in range(n_steps):
-            _, conics = covariance_of(state)
-            out = eval_mixture(state.means, conics, state.u, samples, order=0,
-                               mask=state.interior, period=cfg.period,
-                               impl=cfg.mixture_impl)
-            frames.append(out.u.T.reshape(-1, res, res))
-            new_state, _ = forward_step(cfg, network, state, t=i * dt)
-            if i < densify:
-                new_state = adaptive_split(cfg, new_state, state)
-            state = new_state
-        return torch.stack(frames)
+    with span("rollout"):
+        samples = image_samples(res, cfg.scale, cfg.dtype,
+                                state.means.device)
+        frames = []
+        with torch.inference_mode():
+            for i in range(n_steps):
+                with span("step"):
+                    with span("step.render"):
+                        _, conics = covariance_of(state)
+                        out = eval_mixture(
+                            state.means, conics, state.u, samples, order=0,
+                            mask=state.interior, period=cfg.period,
+                            impl=cfg.mixture_impl)
+                        frames.append(out.u.T.reshape(-1, res, res))
+                    new_state, _ = forward_step(cfg, network, state,
+                                                t=i * dt)
+                    if i < densify:
+                        with span("step.split"):
+                            new_state = adaptive_split(cfg, new_state,
+                                                       state)
+                    state = new_state
+            return torch.stack(frames)
 
 
 def rollout(cfg: ModelConfig, network, n_steps: int = 50, res: int = 64,
@@ -590,13 +614,18 @@ def rollout_vorticity(cfg: ModelConfig, network, state: MixtureState,
     rendered from ``state``, then ``n_steps`` of evolve-then-render (every
     step at t = 0, as the script calls it).  Returns ``(n_steps + 1, res,
     res)`` vorticity frames on the state's device."""
-    samples = vorticity_samples(res, cfg.dtype, state.means.device)
-    with torch.inference_mode():
-        frames = [render_vorticity(cfg, state, samples, res)]
-        for _ in range(n_steps):
-            state, _ = forward_step(cfg, network, state)
-            frames.append(render_vorticity(cfg, state, samples, res))
-        return torch.stack(frames)
+    with span("rollout"):
+        samples = vorticity_samples(res, cfg.dtype, state.means.device)
+        with torch.inference_mode():
+            with span("step.render"):
+                frames = [render_vorticity(cfg, state, samples, res)]
+            for _ in range(n_steps):
+                with span("step"):
+                    state, _ = forward_step(cfg, network, state)
+                    with span("step.render"):
+                        frames.append(render_vorticity(cfg, state, samples,
+                                                       res))
+            return torch.stack(frames)
 
 
 def rollout_metrics(frames: np.ndarray, ground_truth: np.ndarray):

@@ -1,21 +1,38 @@
-"""Timers and profiler traces (port of :mod:`pigs_tpu.utils.profiling`).
+"""Timers, program spans and profiler traces (port of
+:mod:`pigs_tpu.utils.profiling`, plus the spans).
 
 ``Timer`` accumulates wall-clock time per name and waits for the device
 before it stops the clock when given tensors to wait for; ``trace`` records
 a ``torch.profiler`` trace (the card's kernels too, when there is one) and
 writes it as a Chrome-trace JSON, which Perfetto reads.
+
+``span(name)`` marks a stretch of the program at a layer boundary (the
+training loop, a step, the network); the spans are recorded only inside
+``tracing()``, their one on-switch.  Off, a span is a shared no-op context
+behind one module-level check: it allocates nothing, reads no counter and
+adds no device operation or host sync.  On, each span appends a
+:class:`SpanRecord` (its id, the id of the innermost span open on the same
+thread, its name, start and end on ``time.time_ns``'s clock, which is the
+profiler's, and the change across it of the kernels' launch counters K1-K5)
+and enters ``torch.profiler.record_function(name)``, so a profile or a
+``trace`` file shows it as a user annotation.  Open spans only on the thread
+that calls the program, never inside an autograd ``Function.backward``
+(which runs on autograd's device thread): a launch made there while the
+caller waits in ``torch.autograd.grad`` falls inside the caller's span on
+the clock, and the counters, which are process-wide, count it there.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["Timer", "trace"]
+__all__ = ["Timer", "trace", "span", "tracing", "SpanRecord"]
 
 
 def _cuda_devices(x, found: set) -> set:
@@ -70,12 +87,128 @@ class Timer:
                          for k, v in sorted(self._totals.items()))
 
 
+# The kernels' launch counters a span reads: (label, module, global).
+LAUNCHES = (("k1", "mixture_kernel", "launches"),
+            ("k2", "mixture_kernel", "bwd_gauss_launches"),
+            ("k3", "mixture_kernel", "bwd_sample_launches"),
+            ("k4", "aggregate_kernel", "fwd_launches"),
+            ("k5", "aggregate_kernel", "bwd_launches"))
+
+
+class SpanRecord:
+    """One span as :func:`tracing` records it: ``id`` (its index in the
+    records), ``parent`` (the id of the innermost span open on the same
+    thread when it opened, or None), ``name``, ``thread``
+    (``threading.get_ident()``), ``start_ns`` and ``end_ns`` (``time.time_ns``;
+    ``end_ns`` is None while it is open) and ``launches``, the change of
+    each counter of :data:`LAUNCHES` across it, by label (its children's
+    launches included)."""
+
+    __slots__ = ("id", "parent", "name", "thread", "start_ns", "end_ns",
+                 "launches")
+
+    def __init__(self, id: int, parent: Optional[int], name: str,
+                 thread: int):
+        self.id = id
+        self.parent = parent
+        self.name = name
+        self.thread = thread
+        self.start_ns = 0
+        self.end_ns: Optional[int] = None
+        self.launches: Dict[str, int] = {}
+
+
+class _Tracing:
+    """The records of one :func:`tracing` block and its open spans, a stack
+    per thread."""
+
+    def __init__(self):
+        from pigs_tpu_torch.ops import aggregate_kernel, mixture_kernel
+        modules = {"mixture_kernel": mixture_kernel,
+                   "aggregate_kernel": aggregate_kernel}
+        self.counters = [(label, modules[module], name)
+                         for label, module, name in LAUNCHES]
+        self.records: List[SpanRecord] = []
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def counts(self) -> List[int]:
+        return [getattr(module, name) for _, module, name in self.counters]
+
+
+_tracing: Optional[_Tracing] = None
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "tracing", "record", "annotation", "counts")
+
+    def __init__(self, name: str, tracing_: _Tracing):
+        self.name = name
+        self.tracing = tracing_
+
+    # The clock is read next to the annotation's own reads, so that the
+    # record and the annotation agree to a few microseconds.
+    def __enter__(self):
+        tr = self.tracing
+        stack = getattr(tr.local, "stack", None)
+        if stack is None:
+            stack = tr.local.stack = []
+        with tr.lock:
+            self.record = SpanRecord(len(tr.records),
+                                     stack[-1].id if stack else None,
+                                     self.name, threading.get_ident())
+            tr.records.append(self.record)
+        stack.append(self.record)
+        self.counts = tr.counts()
+        self.annotation = torch.profiler.record_function(self.name)
+        self.annotation.__enter__()
+        self.record.start_ns = time.time_ns()
+        return self.record
+
+    def __exit__(self, *exc):
+        self.record.end_ns = time.time_ns()
+        self.annotation.__exit__(*exc)
+        tr = self.tracing
+        self.record.launches = {
+            label: after - before for (label, _, _), before, after
+            in zip(tr.counters, self.counts, tr.counts())}
+        tr.local.stack.pop()
+        return False
+
+
+def span(name: str):
+    """A context manager around one stretch of the program, recorded as
+    ``name`` inside :func:`tracing` and nothing outside it."""
+    if _tracing is None:
+        return _OFF
+    return _Span(name, _tracing)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record every :func:`span` of the process inside the block; yields
+    the list of :class:`SpanRecord` it fills, in the order the spans
+    opened.  A ``tracing()`` inside another shares the outer one's list."""
+    global _tracing
+    if _tracing is not None:
+        yield _tracing.records
+        return
+    _tracing = _Tracing()
+    try:
+        yield _tracing.records
+    finally:
+        _tracing = None
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]):
     """Profile the block with ``torch.profiler`` (CPU activity, and the
-    card's when CUDA is available) and write the trace as
-    ``log_dir/trace_<pid>_<ns>.json`` on exit; a no-op when ``log_dir`` is
-    None.  Open the file in Perfetto (ui.perfetto.dev)."""
+    card's when CUDA is available) inside :func:`tracing`, so the program's
+    spans show as user annotations above the operations they ran, and
+    write the trace as ``log_dir/trace_<pid>_<ns>.json`` on exit; a no-op
+    when ``log_dir`` is None.  Open the file in Perfetto
+    (ui.perfetto.dev)."""
     if log_dir is None:
         yield
         return
@@ -85,10 +218,11 @@ def trace(log_dir: Optional[str]):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)
-    prof.start()
-    try:
-        yield
-    finally:
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(
-            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    with tracing():
+        prof.start()
+        try:
+            yield
+        finally:
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(
+                log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
