@@ -9,12 +9,12 @@ Phases, in order; any failure exits non-zero:
 
   1. device    the card's name and power limit, torch and CUDA versions, and
                the builds of the CUDA kernels from pigs_tpu_torch/ops/csrc/
-               with nvcc for sm_90a, all four sources at once: K1 (mixture
+               with nvcc for sm_90a, all five sources at once: K1 (mixture
                forward), K2/K3 (its backward, Gaussian and sample side), K4
-               (fused neighbour aggregation) and K5 (its backward); each
-               instantiation's registers and spills from ptxas (a K1-K5
-               instantiation that spills fails, combine, merge and
-               reduction passes included);
+               (fused neighbour aggregation), K5 (its backward) and K6 (the
+               Adam step); each instantiation's registers and spills from
+               ptxas (a K1-K6 instantiation that spills fails, combine,
+               merge and reduction passes included);
   2. kernel    K1 against its plain PyTorch twin and the plain path in
                float32 (norm-relative error <= 1e-5 per field) and against
                the plain path in float64 (<= 1e-4), at the two shapes of the
@@ -41,15 +41,16 @@ Phases, in order; any failure exits non-zero:
                fixture (artifacts/burgers_ns4096_ema2_train_torch.npz) in
                float32 through K1/K2, against the JAX float64 reference:
                loss terms rel <= 1e-4, the gradient norm-rel <= 1e-3, the
-               parameter update norm-rel <= 1e-2; the plain path's errors
-               are printed beside them;
+               parameter update norm-rel <= 1e-2, one K6 launch; the plain
+               path's errors are printed beside them;
   6. epoch     the resumed 20-step split-regime epoch on the fixture's
-               inputs: exact K1/K2 launch counts, finite losses, per-step
+               inputs: exact K1/K2/K6 launch counts, finite losses, per-step
                totals within 1e-2 of JAX's up to the first step whose active
                mask differs from JAX's (reported, not failed: split
                decisions threshold on float32 values);
   7. train     train() resumed from the fixture for 3 epochs of the flagship
-               recipe; a checkpoint saved and restored equal; the EMA
+               recipe, one K6 launch per Adam step; a checkpoint saved and
+               restored equal; the EMA
                parameters rolled out, mean rel-L2 vs FD within 0.005 of the
                JAX-CPU rollout of the checkpoint;
   8. times     K1 at the flagship's four main-path shapes (1664x1664 and
@@ -204,9 +205,10 @@ Phases, in order; any failure exits non-zero:
                Adam against pn_loss_grads + adam_update: loss within 1e-6,
                parameters bitwise equal (else, only if the reference does
                not repeat itself bitwise, the update within 1e-2), 3 K1 /
-               2 K2 as pn_step; (b) two gloo ranks spawned on cuda:0, meshes
-               (2, 1) and (1, 2): each rank's gathered fields within 1e-5
-               and gradients within 1e-4 of a single-rank eval_mixture,
+               2 K2 / 1 K6 as pn_step; (b) two gloo ranks spawned on
+               cuda:0, meshes (2, 1) and (1, 2): each rank's gathered
+               fields within 1e-5 and gradients within 1e-4 of a
+               single-rank eval_mixture,
                exact launches per rank (a ring call: one K1 and one K2 per
                model rank), the ring's bytes through host memory (gloo's
                point-to-point ops take CPU tensors); 3 DP steps on (2, 1)
@@ -217,11 +219,33 @@ Phases, in order; any failure exits non-zero:
                scripts/select_split_stop_torch.py on one of JAX's held-out
                ICs (artifacts/select_split_torch.npz), stops 0, 8, 14, 50
                steps: every score and the parity within 0.005 of JAX-CPU's.
+ 16. optim     K6 (one optax Adam step over a list of tensors) against its
+               plain twin in float32 (norm-relative <= 1e-5 on the
+               parameters' change and the moments) and the plain path in
+               float64 (<= 1e-4): at the flagship's and the NS network's
+               parameters and Adam state from the training fixtures, with
+               JAX's gradient scaled so that the clip is active and not;
+               one NaN and one inf gradient (parameters, moments and count
+               bitwise unchanged); from the fixtures' per-tensor state and
+               then from K6's own output state; a transposed gradient (one
+               layout copy, bitwise the contiguous result); at a no-MLP
+               size (with the 1-D empty transforms), a fit single-tensor
+               size, the most tensors one launch takes, and a total ten
+               times the networks'; every case through adam_update's
+               dispatch.  Counts and skip decisions exact, two launches
+               bitwise equal, the old state untouched, one launch counted a
+               call; then K6's times at both networks (device, graph
+               replay, call, plain twin, bound) and ptxas registers and
+               spills (a K6 spill fails).  Every phase from 4 on counts K6
+               beside K1-K5: one a training step, a no-MLP iteration and a
+               DP step per rank, four a fit iteration, none in a rollout.
 
 The line before the card's is the kernels line: per kernel its launches
 (per path, per training step, per NS training step, per rollout step, per
-no-MLP iteration, per curl-fit iteration, per rank of the parallel paths),
-errors, device, graph, call and plain times and bounds by shape, and
+no-MLP iteration, per curl-fit iteration, per rank of the parallel paths,
+as each path's run counted them), errors, device, graph, call and plain
+times and bounds by shape (K6: also its device time and kernels per step in
+each path's profile), and
 library_ms (null: no single PyTorch call computes any of these functions).
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
@@ -255,6 +279,8 @@ PERF_SUITE_SIZES = (512, 1664, 4096, 8192)  # benchmarks/perf_suite.py
 
 KERNEL_F32_TOL = 1e-5    # a kernel vs the same math in float32, summed in another order
 KERNEL_F64_TOL = 1e-4    # a kernel vs the float64 oracle (the repo's bound, BASELINE.md:21)
+K6_F32_TOL = 1e-5        # K6 vs its float32 twin: the norm's sum order, powf
+K6_F64_TOL = 1e-4        # K6 vs the plain path in float64
 FRAME0_TOL = 1e-5        # frame 0 renders the same initial state as JAX did
 EARLY_FRAMES_TOL = 1e-3  # steps 1-5: float32 differences through the network
 MEAN_REL_L2_TOL = 0.005  # mean rel-L2 vs FD, against the JAX-CPU rollout's
@@ -298,7 +324,8 @@ PEAK_BYTES_PER_MS = 3.35e9
 # The device kernels of K1 and K2 by name, as a profile of a step counts
 # them.
 KERNEL_FAMILIES = {"mixture_fwd": ("mixture_fwd", "FwdStore"),
-                   "mixture_bwd_gauss": ("bwd_gauss", "GaussStore")}
+                   "mixture_bwd_gauss": ("bwd_gauss", "GaussStore"),
+                   "adam": ("adam_cluster_kernel",)}
 LIBRARY_NOTE = ("no single PyTorch call computes this function; the plain "
                 "twin repeats the kernel's arithmetic step by step")
 
@@ -313,14 +340,17 @@ def check(ok: bool, msg: str):
 
 
 def reset_counts(mk, ak):
+    from pigs_tpu_torch.ops import optim_kernel
     mk.launches = mk.bwd_gauss_launches = mk.bwd_sample_launches = 0
     ak.fwd_launches = ak.bwd_launches = 0
+    optim_kernel.launches = 0
 
 
 def read_counts(mk, ak) -> tuple:
-    """The launch counts of K1, K2, K3, K4 and K5."""
+    """The launch counts of K1, K2, K3, K4, K5 and K6."""
+    from pigs_tpu_torch.ops import optim_kernel
     return (mk.launches, mk.bwd_gauss_launches, mk.bwd_sample_launches,
-            ak.fwd_launches, ak.bwd_launches)
+            ak.fwd_launches, ak.bwd_launches, optim_kernel.launches)
 
 
 def ptxas_name(mangled: str) -> str:
@@ -558,7 +588,9 @@ def profiled_device_ms(launch) -> tuple:
     launches it, summed; and, by kernel name, (launches per call, mean ms).
     The profiler may miss a launch or two of a window, so a total over
     DEVICE_RUNS would read low; a window in which it saw no kernel at all
-    is taken again, up to three times, and then gives (None, {})."""
+    is taken again, up to three times, and then gives (None, {}) after
+    printing what the windows held: the device events of any kind and the
+    host's launch calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     launch()
@@ -574,6 +606,14 @@ def profiled_device_ms(launch) -> tuple:
                   and e.count and device_us(e) > 0]
         if events:
             break
+        every = prof.key_averages()
+        device = sum(e.count for e in every if str(getattr(
+            e, "device_type", "")).endswith("CUDA"))
+        launches = {e.key: e.count for e in every if e.key.startswith("cu")
+                    and "Launch" in e.key}
+        print(f"[profiler] a window of {DEVICE_RUNS} launches without a "
+              f"device kernel: {device} device events, host launch calls "
+              f"{launches}", flush=True)
     else:
         return None, {}
     kernels = {kernel_name(e.key): (max(1, round(e.count / DEVICE_RUNS)),
@@ -771,7 +811,7 @@ def time_k1(label, mu, con, val, smp, order, mask, period, mk, card) -> dict:
 
 
 def sweep_grid(name, label, geometry, launch, card) -> dict:
-    """A sliced kernel (K1-K5) at one input with the slicing aimed at each
+    """A sliced kernel (K1-K6) at one input with the slicing aimed at each
     of SWEEP_BLOCKS_PER_SM blocks per SM (``mixture_kernel.BLOCKS_PER_SM``
     is the one the paths and wrappers run): the graph-replayed device time
     per launch by target."""
@@ -937,6 +977,7 @@ def train_step_phase(ti, impl):
     update and the loss weight)."""
     import torch
 
+    from pigs_tpu_torch.ops import optim_kernel
     from pigs_tpu_torch.train.pn import pn_loss_grads, pn_step
     cfg = ti.cfg._replace(mixture_impl=impl)
     ti.reset()
@@ -957,6 +998,7 @@ def train_step_phase(ti, impl):
     grad = torch.cat([g.flatten().double().cpu() for g in grads])
     grad_err = rel_err(grad, ti.jax_tree("step_grads"))
     before = ti.flat_params()
+    k6 = optim_kernel.launches
     opt, _, _, _, _, lw = pn_step(
         cfg, ti.network, ti.opt, ti.state, prev, ti.samples, ti.time_samples,
         ti.bc_samples, torch.ones((), device=ti.device), ti.base_lr,
@@ -965,16 +1007,20 @@ def train_step_phase(ti, impl):
     update = ti.flat_params() - before
     update_err = rel_err(update, ti.jax_tree("step_params") - before)
     lw_err = abs(float(lw) - float(ti.data["step_loss_weight"]))
+    torch.cuda.synchronize()
     check(int(opt.count) == int(ti.opt0.count) + 1, "Adam count not advanced")
+    check(optim_kernel.launches == k6 + 1,
+          f"pn_step launched {optim_kernel.launches - k6} K6, expected 1")
     return loss_errs, grad_err, update_err, lw_err
 
 
 def split_epoch_phase(ti, mk, ak, want_counts, tag):
-    """The fixture's split-regime epoch through the kernels: exact K1, K2
-    and K3 launch counts, finite losses, per-step totals within
-    EPOCH_TOTAL_TOL of JAX's up to the first step whose active mask differs
-    from JAX's (reported, not failed: split decisions threshold on float32
-    values).  Returns the launch counts (K1-K5) and that step (or None)."""
+    """The fixture's split-regime epoch through the kernels: exact K1, K2,
+    K3 and K6 launch counts (``want_counts`` in that order), finite
+    losses, per-step totals within EPOCH_TOTAL_TOL of JAX's up to the first
+    step whose active mask differs from JAX's (reported, not failed: split
+    decisions threshold on float32 values).  Returns the launch counts
+    (K1-K6) and that step (or None)."""
     import numpy as np
     import torch
 
@@ -990,9 +1036,9 @@ def split_epoch_phase(ti, mk, ak, want_counts, tag):
                      ti.recon[:ti.n_steps])
     torch.cuda.synchronize()
     counts = read_counts(mk, ak)
-    print(f"[{tag}] launches (K1, K2, K3, K4, K5) {counts}, expected "
+    print(f"[{tag}] launches (K1-K6) {counts}, expected (K1, K2, K3, K6) "
           f"{want_counts}", flush=True)
-    check(counts[:3] == want_counts,
+    check(counts[:3] + counts[5:] == want_counts,
           f"{tag} launches {counts} != {want_counts}")
     per_step = epoch.per_step.cpu().numpy()
     check(bool(np.isfinite(per_step).all()), f"{tag} losses not finite")
@@ -1132,8 +1178,8 @@ def ns_phase(dev, mk, ak, card) -> dict:
     counts = read_counts(mk, ak)
     # Frame 0's render, then per step forward_step (order 3 at the means)
     # and the render (order 1 at the 64x64 pixel centres).
-    want = (1 + 2 * steps, 0, 0, 0, 0)
-    print(f"[ns] launches (K1-K5) {counts}, expected {want}: "
+    want = (1 + 2 * steps, 0, 0, 0, 0, 0)
+    print(f"[ns] launches (K1-K6) {counts}, expected {want}: "
           f"{(counts[0] - 1) // steps} K1 per step", flush=True)
     check(counts == want, f"NS rollout launches {counts} != {want}")
     frames = frames.cpu().numpy()
@@ -1241,10 +1287,10 @@ def ns_train_phase(dev, mk, ak, card, fi) -> dict:
     # 3 at the means); sample_fields 2 K1, of which only the order-3 output
     # reaches the loss (NS has no boundary term), so 1 K2; adaptive_split 3
     # K1 (density order 0 c=1, vorticity now and before order 1);
-    # sample_fields of the split state 2 K1.
+    # sample_fields of the split state 2 K1; the Adam step 1 K6.
     n_steps = ti.n_steps
     out["counts"]["ns_epoch"], out["first"] = split_epoch_phase(
-        ti, mk, ak, (2 + 8 * n_steps, n_steps, 0), "ns-train epoch")
+        ti, mk, ak, (2 + 8 * n_steps, n_steps, 0, n_steps), "ns-train epoch")
     out["n_steps"] = n_steps
 
     # (c) train(ns_data=...) resumed for 3 epochs, the round trip, and the
@@ -1260,10 +1306,13 @@ def ns_train_phase(dev, mk, ak, card, fi) -> dict:
     torch.cuda.synchronize()
     out["train_s"] = time.perf_counter() - t_train
     out["counts"]["ns_train"] = read_counts(mk, ak)
+    adam_steps = int(result.opt_state.count) - int(ti.opt0.count)
     check(out["counts"]["ns_train"][0] > 0
           and out["counts"]["ns_train"][1] > 0
-          and out["counts"]["ns_train"][2] == 0,
-          f"NS train() launches (K1-K5) {out['counts']['ns_train']}")
+          and out["counts"]["ns_train"][2] == 0
+          and out["counts"]["ns_train"][5] == adam_steps > 0,
+          f"NS train() launches (K1-K6) {out['counts']['ns_train']}, "
+          f"{adam_steps} Adam steps")
     back = check_round_trip(ti, result, dev)
     net = make_network(ti.cfg, frequencies=ti.network.frequencies.cpu(),
                        device=dev)
@@ -1276,7 +1325,7 @@ def ns_train_phase(dev, mk, ak, card, fi) -> dict:
     check(bool(np.isfinite(frames).all()), "NS EMA frames not finite")
     gt = data.frames[held].permute(2, 0, 1).cpu().numpy()
     out["ema_mean_rel_l2"] = tpn.rollout_metrics(frames, gt)["mean_rel_norm"]
-    print(f"[ns-train] 3 epochs in {out['train_s']:.2f} s; launches (K1-K5) "
+    print(f"[ns-train] 3 epochs in {out['train_s']:.2f} s; launches (K1-K6) "
           f"{out['counts']['ns_train']}; checkpoint round trip equal; EMA "
           f"rollout mean rel-L2 vs the solver {out['ema_mean_rel_l2']:.6f} "
           f"(JAX-CPU rollout of the checkpoint {jax_mean:.6f})", flush=True)
@@ -1369,13 +1418,15 @@ def ns_train_phase(dev, mk, ak, card, fi) -> dict:
             int(fi.data["train_epoch"]), tcfg.initial_timesteps, dev)
     torch.cuda.synchronize()
     counts = out["counts"]["options_epoch"] = read_counts(mk, ak)
-    want = (3 + 10 * n_opt, 2 * n_opt, 0)
+    want = (3 + 10 * n_opt, 2 * n_opt, 0, n_opt)
     n_cand = launched.count(cand_key)
     print(f"[ns-train] flagship epoch with noise_std 0.01 and "
-          f"adaptive_sampling 0.5: {n_opt} steps, launches (K1-K5) {counts}, "
-          f"expected {want}; K1 launches at {cand_key[0]}x{cand_key[1]} "
-          f"order 1: {n_cand}; totals {totals}", flush=True)
-    check(counts[:3] == want, f"options epoch launches {counts} != {want}")
+          f"adaptive_sampling 0.5: {n_opt} steps, launches (K1-K6) {counts}, "
+          f"expected (K1, K2, K3, K6) {want}; K1 launches at "
+          f"{cand_key[0]}x{cand_key[1]} order 1: {n_cand}; totals {totals}",
+          flush=True)
+    check(counts[:3] + counts[5:] == want,
+          f"options epoch launches {counts} != {want}")
     check(n_cand == 1, f"{n_cand} importance K1 launches, expected 1")
     check(bool(np.isfinite(totals).all()), "options epoch losses not finite")
     before, after = seen["state"]
@@ -1714,10 +1765,11 @@ def no_mlp_block_inputs(cfg, data, dev, iters=None):
 
 def no_mlp_solve(label, cfg, n_steps, dev, mk, ak, densify_every=None):
     """``solve`` on the card from a seeded generator, counted: the
-    trajectory, its launches (K1-K5), the seconds it took, and the
+    trajectory, its launches (K1-K6), the seconds it took, and the
     iterations of the IC fit and of the dynamics steps.  An IC-fit
     iteration launches one K1 and one K2, a dynamics iteration two K1s (the
-    previous mixture and the current one) and one K2; none launches K3."""
+    previous mixture and the current one) and one K2; none launches K3;
+    each takes one Adam step, one K6."""
     import torch
 
     from pigs_tpu_torch.train.no_mlp import solve
@@ -1731,12 +1783,12 @@ def no_mlp_solve(label, cfg, n_steps, dev, mk, ak, densify_every=None):
     counts = read_counts(mk, ak)
     ic = traj[0]["iters"]
     dyn = sum(s["iters"] for s in traj[1:])
-    want = (ic + 2 * dyn, ic + dyn, 0, 0, 0)
+    want = (ic + 2 * dyn, ic + dyn, 0, 0, 0, ic + dyn)
     losses = " ".join(f"{s['loss']:.3e}" for s in traj)
     print(f"[no-mlp] {label}: {n_steps - 1} steps after the IC fit in "
           f"{seconds:.2f} s, iterations {[s['iters'] for s in traj]} "
           f"({(ic + dyn) / seconds:.1f}/s), losses {losses}, active "
-          f"{[int(s['active'].sum()) for s in traj]}; launches (K1-K5) "
+          f"{[int(s['active'].sum()) for s in traj]}; launches (K1-K6) "
           f"{counts}, expected {want}", flush=True)
     check(counts == want, f"no-MLP {label} launches {counts} != {want}")
     return traj, counts, seconds, ic + dyn
@@ -1857,7 +1909,7 @@ def no_mlp_phase(dev, mk, ak, card) -> dict:
     torch.cuda.synchronize()
     counts = out["counts"]["no_mlp_block"] = read_counts(mk, ak)
     iters = out["iters"] = cfg.block_iters
-    want = (2 * iters, iters, 0, 0, 0)
+    want = (2 * iters, iters, 0, 0, 0, iters)
     arr = lambda p: no_mlp_arrays(data, p)
 
     def worst(got, prefix):
@@ -1873,7 +1925,7 @@ def no_mlp_phase(dev, mk, ak, card) -> dict:
           f"Gaussians, float32 through K1/K2) vs JAX float64: "
           + ", ".join(f"{k} {v:.3e} (tol {NO_MLP_BLOCK_TOL[k]:.1e})"
                       for k, v in errs.items())
-          + f"; launches (K1-K5) {counts}, expected {want}", flush=True)
+          + f"; launches (K1-K6) {counts}, expected {want}", flush=True)
     check(counts == want, f"no-MLP block launches {counts} != {want}")
     check(int(opt.count) == int(data["block_adam_count"]),
           f"no-MLP block Adam count {int(opt.count)}")
@@ -2197,13 +2249,13 @@ def ns_data_phase(dev, mk, ak, card, ns) -> dict:
     errs = fit_block_errors(cfg, data, dev)
     torch.cuda.synchronize()
     counts = out["counts"]["fit_block"] = read_counts(mk, ak)
-    want = (iters, iters, 0, 0, 0)
+    want = (iters, iters, 0, 0, 0, 4 * iters)   # 4 Adams an iteration
     print(f"[ns-data] fixture curl-fit block ({iters} iterations, 1024 "
           f"samples x 400 Gaussians, order 1 c=2 periodic, float32 through "
           f"K1/K2) vs JAX float64: " + ", ".join(
               f"{k} {v:.3e} (tol {FIT_BLOCK_TOL[k]:.1e})"
               for k, v in errs.items())
-          + f"; launches (K1-K5) {counts}, expected {want}", flush=True)
+          + f"; launches (K1-K6) {counts}, expected {want}", flush=True)
     check(counts == want, f"fit block launches {counts} != {want}")
     for k, e in errs.items():
         check(e <= FIT_BLOCK_TOL[k],
@@ -2229,11 +2281,11 @@ def ns_data_phase(dev, mk, ak, card, ns) -> dict:
         seed=int(data["config_seed"]), device=dev)
     secs = out["fit_s"] = time.perf_counter() - t0
     counts = out["counts"]["port_fit"] = read_counts(mk, ak)
-    want = (full.iters, full.iters, 0, 0, 0)
+    want = (full.iters, full.iters, 0, 0, 0, 4 * full.iters)
     print(f"[ns-data] fit_fno_trajectory (trajectory {traj}, nx {full.nx}, "
           f"{full.iters} iterations, seed {int(data['config_seed'])}): final "
           f"block loss {loss:.6f}, {secs:.2f} s ({full.iters / secs:.1f} "
-          f"iterations/s); launches (K1-K5) {counts}, expected {want}; "
+          f"iterations/s); launches (K1-K6) {counts}, expected {want}; "
           f"{card}", flush=True)
     check(counts == want, f"port fit launches {counts} != {want}")
     ds = NSDataset.load(NS_DATA, device=dev)
@@ -2270,7 +2322,7 @@ def ns_data_phase(dev, mk, ak, card, ns) -> dict:
     torch.cuda.synchronize()
     out["initialize_s"] = time.perf_counter() - t0
     counts = out["counts"]["initialize"] = read_counts(mk, ak)
-    want = (init.iters + 1, init.iters, 0, 0, 0)
+    want = (init.iters + 1, init.iters, 0, 0, 0, 4 * init.iters)
     with np.load(os.path.join(init_out, "fit.npz")) as z:
         res = {k: z[k] for k in z.files}
     losses = res["losses"]
@@ -2278,7 +2330,7 @@ def ns_data_phase(dev, mk, ak, card, ns) -> dict:
           f"at capacity {init.capacity}: block losses "
           + " ".join(f"{x:.3e}" for x in losses)
           + f", {int(res['active'].sum())} active, {out['initialize_s']:.2f} "
-          f"s; launches (K1-K5) {counts}, expected {want} (the last K1 the "
+          f"s; launches (K1-K6) {counts}, expected {want} (the last K1 the "
           f"128x128 render)", flush=True)
     check(counts == want, f"initialize launches {counts} != {want}")
     check(bool(np.isfinite(losses).all() and np.isfinite(res["render"]).all())
@@ -2393,7 +2445,7 @@ def first_order(means, conics, values, samples, order, mask, diff_samples):
 
 def counted_validate(vpn, argv, pn, mk, ak):
     """Run scripts/validate_pn_torch.py's main on ``argv``, counted; returns
-    ``(summary, launches (K1-K5), [steps of each epoch trained])``."""
+    ``(summary, launches (K1-K6), [steps of each epoch trained])``."""
     import torch
     steps, train_epoch = [], pn.train_epoch
 
@@ -2490,7 +2542,7 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
             want = double_backward(mu.double(), con.double(), val.double(),
                                    smp.double(), order, mask, "plain", ds)
             k3 = 1 if ds else 0
-            expect = [(1, 1, k3, 0, 0), (1, 2, 2 * k3, 0, 0)]
+            expect = [(1, 1, k3, 0, 0, 0), (1, 2, 2 * k3, 0, 0, 0)]
             errs = []
             for name, a, b in zip(("means", "conics", "values", "samples"),
                                   got, want):
@@ -2515,7 +2567,7 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
                   f"scaled max err vs the f64 oracle (means, conics, values"
                   f"{', samples' if ds else ''}) "
                   + " ".join(f"{e:.2e}" for e in errs)
-                  + f" (tol {SECOND_ORDER_TOL:.0e}); launches (K1-K5) after "
+                  + f" (tol {SECOND_ORDER_TOL:.0e}); launches (K1-K6) after "
                   f"the inner gradient {counts[0]}, after the outer "
                   f"{counts[1]}; first order {first_ms:.2f} ms, second order "
                   f"{second_ms:.2f} ms (median of 3 calls, forward included, "
@@ -2538,7 +2590,7 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
     # (b) validate_pn_torch on the flagship training fixture: the EMA at the
     # fixture's epoch, then three resumed epochs.  Each rollout() runs its
     # 50 steps twice (warm-up, then timed), 2 K1 a step; a resumed epoch in
-    # the split regime launches 2 + 8 K1 and 2 K2 a step (phase 6).
+    # the split regime launches 2 + 8 K1, 2 K2 and 1 K6 a step (phase 6).
     vpn = load_script("validate_pn_torch")
     run_dir = os.path.join(SCRATCH, "validate_pn")
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -2550,14 +2602,15 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
                   "--resume-fixture", TRAIN_FIXTURE, "--out", run_dir], pn,
             mk, ak)
         secs = time.perf_counter() - t0
-        want = (sum(2 + 8 * n for n in steps) + 200, 2 * sum(steps), 0, 0, 0)
+        want = (sum(2 + 8 * n for n in steps) + 200, 2 * sum(steps), 0, 0, 0,
+                sum(steps))
         fd = np.load(os.path.join(run_dir, "fd_gt_frames.npy"))
         fd_err = float(np.abs(fd - data["fd_frames"]).max())
         print(f"[validate] validate_pn_torch, flagship recipe, --epochs "
               f"{epochs} from the training fixture: {len(steps)} epochs of "
               f"{steps} steps, mean rel-L2 vs its FD {summary['mean_rel_norm']:.6f}"
               f" (JAX-CPU {jax_mean:.6f}); its FD frames vs the fixture's max "
-              f"abs {fd_err:.3e}; launches (K1-K5) {counts}, expected {want}; "
+              f"abs {fd_err:.3e}; launches (K1-K6) {counts}, expected {want}; "
               f"{secs:.1f} s ({card})", flush=True)
         check(len(steps) == epochs - 30000, f"validate --epochs {epochs}: "
               f"{len(steps)} epochs trained")
@@ -2576,9 +2629,9 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
 
     # (c) every problem from scratch at full width: nx 20, the default
     # capacity, its committed run's dt, SHORT_EPOCHS epochs (one step each this early in the
-    # curriculum: 2 + 3 K1, and 2 K2 but for TEST, whose loss reads no
-    # mixture), SHORT_STEPS rollout steps twice (2 K1 a step) and, for
-    # TEST, the law's SHORT_STEPS forward steps (1 K1 each).
+    # curriculum: 2 + 3 K1, 2 K2 but for TEST, whose loss reads no
+    # mixture, and 1 K6), SHORT_STEPS rollout steps twice (2 K1 a step)
+    # and, for TEST, the law's SHORT_STEPS forward steps (1 K1 each).
     for problem in SHORT_FLAGS:
         pdir = os.path.join(SCRATCH, f"validate_{problem}")
         shutil.rmtree(pdir, ignore_errors=True)
@@ -2591,7 +2644,7 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
         k2 = 0 if problem == "test" else 2
         want = (sum(2 + 3 * n for n in steps) + 4 * SHORT_STEPS
                 + (SHORT_STEPS if problem == "test" else 0),
-                k2 * sum(steps), 0, 0, 0)
+                k2 * sum(steps), 0, 0, 0, sum(steps))
         frames = np.load(os.path.join(pdir, "rollout_frames.npy"))
         with open(os.path.join(pdir, "summary.json")) as f:
             keys = set(json.load(f))
@@ -2601,7 +2654,7 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
               f"scratch (capacity {summary['capacity']}, {SHORT_EPOCHS} "
               f"epochs of {steps} steps, {SHORT_STEPS} rollout steps): "
               + ", ".join(f"{k} {v:.5f}" for k, v in scores.items())
-              + f"; launches (K1-K5) {counts}, expected {want}; "
+              + f"; launches (K1-K6) {counts}, expected {want}; "
               f"{secs:.1f} s", flush=True)
         check(frames.shape[0] == SHORT_STEPS and
               bool(np.isfinite(frames).all()), f"{problem}: frames")
@@ -2621,9 +2674,9 @@ def validate_phase(dev, mk, ak, card, ti, data) -> dict:
     counts = read_counts(mk, ak)
     print(f"[validate] dt=0.1 checkpoint (raw params), 50 steps: mean rel-L2 "
           f"{dt01['mean_rel_norm']:.6f} (JAX-CPU "
-          f"{dt01['jax_mean_rel_norm']:.6f}); launches (K1-K5) {counts}",
+          f"{dt01['jax_mean_rel_norm']:.6f}); launches (K1-K6) {counts}",
           flush=True)
-    check(counts == (200, 0, 0, 0, 0), f"dt=0.1 rollout launches {counts}")
+    check(counts == (200, 0, 0, 0, 0, 0), f"dt=0.1 rollout launches {counts}")
     check(abs(dt01["mean_rel_norm"] - dt01["jax_mean_rel_norm"])
           <= MEAN_REL_L2_TOL, f"dt=0.1 rollout {dt01['mean_rel_norm']:.6f}")
     out["counts"]["dt01_rollout"] = counts
@@ -2659,7 +2712,7 @@ def parallel_inputs(ti):
 def parallel_mixture(fn, mesh, ti, mk, ak):
     """``fn`` (the sharded or ring evaluation) forward and backward of the
     local loss at phase 15's inputs, counted: (this rank's fields, the
-    gradients of means, conics and values, launches K1-K5)."""
+    gradients of means, conics and values, launches K1-K6)."""
     import torch
     means, conics, values, samples, mask, period = parallel_inputs(ti)
     leaves = [x.detach().clone().requires_grad_()
@@ -2688,7 +2741,7 @@ def single_rank_mixture(ti):
 def dp_steps(step, ti, mesh, n_steps, timer=None):
     """``n_steps`` of ``step`` from the fixture's checkpoint, the fields
     carried as the epoch carries them: per step (loss, flat parameters on
-    the host, launches K1-K5)."""
+    the host, launches K1-K6)."""
     import torch
 
     from pigs_tpu_torch.ops import aggregate_kernel as ak
@@ -2852,10 +2905,11 @@ def parallel_phase(dev, mk, ak, card, ti, pn_step_ms) -> dict:
                                                                ref_grads)))
             print(f"[parallel] nccl 1x1 {name} 4096x1664 order 2: fields "
                   f"and gradients bitwise equal to eval_mixture's: {same}; "
-                  f"launches (K1-K5) {counts}", flush=True)
+                  f"launches (K1-K6) {counts}", flush=True)
             check(same, f"nccl 1x1 {name}: not bitwise equal to eval_mixture")
-            check(counts == (1, 1, 0, 0, 0),
-                  f"nccl 1x1 {name} launches {counts}, expected (1, 1, 0)")
+            check(counts == (1, 1, 0, 0, 0, 0),
+                  f"nccl 1x1 {name} launches {counts}, expected "
+                  "(1, 1, 0, 0, 0, 0)")
             out["counts"][f"parallel_{name}"] = counts
 
         # The DP step against pn_loss_grads + adam_update at the same lr;
@@ -2884,13 +2938,13 @@ def parallel_phase(dev, mk, ak, card, ti, pn_step_ms) -> dict:
         print(f"[parallel] nccl 1x1 DP step vs pn_loss_grads + adam_update: "
               f"loss rel err {loss_err:.2e}; parameters bitwise equal "
               f"{bitwise} (the reference against itself: {ref_bitwise}); "
-              f"update norm-rel err {update_err:.2e}; launches (K1-K5) "
+              f"update norm-rel err {update_err:.2e}; launches (K1-K6) "
               f"{counts}, pn_loss_grads' {refs[0][2]}", flush=True)
         check(loss_err <= DP_LOSS_TOL, f"DP loss {loss_err:.3e}")
         check(bitwise or (not ref_bitwise and update_err <= STEP_UPDATE_TOL),
               f"DP step parameters differ from pn_step's ({update_err:.3e}) "
               "although the reference repeats bitwise")
-        check(counts == refs[0][2] == (3, 2, 0, 0, 0),
+        check(counts == refs[0][2] == (3, 2, 0, 0, 0, 1),
               f"DP step launches {counts}, pn_loss_grads' {refs[0][2]}")
         out["counts"]["parallel_dp_step"] = counts
         out["dp_bitwise"] = bitwise
@@ -2913,12 +2967,13 @@ def parallel_phase(dev, mk, ak, card, ti, pn_step_ms) -> dict:
         print(f"[parallel] Timer: DP step {out['dp_step_ms']:.2f} ms (mean of "
               f"5, {timer.report()}) beside phase 8's pn_step "
               f"{pn_step_ms:.2f} ms; trace {os.path.basename(traces[0])} "
-              f"names {sum(map(len, found.values()))} K1/K2 kernels: "
+              f"names {sum(map(len, found.values()))} K1/K2/K6 kernels: "
               + "; ".join(f"{k}: {', '.join(v)[:120]}"
                           for k, v in found.items()) + f" ({card})",
               flush=True)
-        check(all(found.values()), f"trace names no K1 or K2 kernel: {found}")
-        check(all(s[2] == (3, 2, 0, 0, 0) for s in steps),
+        check(found["mixture_fwd"] and found["mixture_bwd_gauss"],
+              f"trace names no K1 or K2 kernel: {found}")
+        check(all(s[2] == (3, 2, 0, 0, 0, 1) for s in steps),
               "timed DP step launches")
         # The single-rank reference of (b): the same DP_STEPS steps.
         single = dp_steps(step, ti, mesh, DP_STEPS)
@@ -2935,14 +2990,14 @@ def parallel_phase(dev, mk, ak, card, ti, pn_step_ms) -> dict:
         check(res["backend"] == "gloo", f"rank {r} backend {res['backend']}")
         for (shape, name), m in res["mixture"].items():
             model = shape[1]
-            want = (1, 1, 0, 0, 0) if name == "sharded" else (model, model,
-                                                              0, 0, 0)
+            want = ((1, 1, 0, 0, 0, 0) if name == "sharded" else
+                    (model, model, 0, 0, 0, 0))
             label = f"gloo rank {r} mesh {shape} {name}"
             print(f"[parallel] {label}: fields rel err "
                   + " ".join(f"{e:.2e}" for e in m["field_errs"])
                   + "; grads (means, conics, values) "
                   + " ".join(f"{e:.2e}" for e in m["grad_errs"])
-                  + f"; launches (K1-K5) {m['counts']}; {m['host_bytes']} "
+                  + f"; launches (K1-K6) {m['counts']}; {m['host_bytes']} "
                   "bytes round the ring through host memory", flush=True)
             check(max(m["field_errs"]) <= KERNEL_F32_TOL,
                   f"{label} fields {max(m['field_errs']):.3e}")
@@ -2970,7 +3025,7 @@ def parallel_phase(dev, mk, ak, card, ti, pn_step_ms) -> dict:
         check(update_err <= STEP_UPDATE_TOL,
               f"DP step {i} update {update_err:.3e}")
         check(equal, f"DP step {i}: the ranks' parameters differ")
-        check(all(c == (3, 2, 0, 0, 0) for c in counts),
+        check(all(c == (3, 2, 0, 0, 0, 1) for c in counts),
               f"DP step {i} launches {counts}")
     for r, res in enumerate(ranks):
         out["parallel"][f"gloo_2x1_dp_step_rank{r}"] = res["dp"][0][2]
@@ -3008,14 +3063,14 @@ def parallel_phase(dev, mk, ak, card, ti, pn_step_ms) -> dict:
                                   for s in stops)
           + " (JAX-CPU " + " ".join(f"{v:.6f}" for v in evaluation)
           + f"); parity {summary['parity']:.6f} (JAX-CPU {parity:.6f}); "
-          f"launches (K1-K5) {counts}", flush=True)
+          f"launches (K1-K6) {counts}", flush=True)
     check(max(errs) <= SELECT_SCORE_TOL,
           f"select_split scores off JAX-CPU's by {max(errs):.4f}")
     check(abs(summary["parity"] - parity) <= SELECT_SCORE_TOL,
           f"select_split parity {summary['parity']:.6f}")
     # Two trajectories (the held-out IC, the standard one) per stop, each
     # 2 K1 a step (render, forward_step) and 3 a densified step.
-    want = (2 * sum(2 * steps + 3 * s for s in stops), 0, 0, 0, 0)
+    want = (2 * sum(2 * steps + 3 * s for s in stops), 0, 0, 0, 0, 0)
     check(counts == want, f"select_split launches {counts}, expected {want}")
     out["select_split"] = {k: summary[k] for k in (
         "selection_mean_rel_l2", "eval_mean_rel_l2", "parity", "heldout_stop",
@@ -3027,6 +3082,279 @@ def describe_times(times) -> str:
     return "; ".join(f"{impl} fwd {times[(impl, 'fwd')]:.4f} ms, fwd+bwd "
                      f"{times[(impl, 'bwd')]:.4f} ms"
                      for impl in ("kernel", "factored", "plain"))
+
+# ------------------------------------------------------------ phase 16 ----
+
+
+def adam_fixture(path, dev):
+    """A training fixture's parameters (clones, on the card), JAX's
+    gradient of its stored step in the network's order and layout, its
+    Adam state as the checkpoint gives it (one tensor per parameter), the
+    base learning rate and the clip norm."""
+    import torch
+
+    from pigs_tpu_torch.convert import load_train_fixture, params_from_flax
+    _, network, opt, _, data = load_train_fixture(path, device=dev)
+    names = [k for k, _ in network.named_parameters()]
+    tree = params_from_flax({"params" + k[len("step_grads"):]: v
+                             for k, v in data.items()
+                             if k.startswith("step_grads/")})
+    grads = [tree[k].to(device=dev, dtype=torch.float32).contiguous()
+             for k in names]
+    params = [p.detach().clone() for p in network.parameters()]
+    return (params, grads, opt, float(data["train_base_lr"]),
+            float(data["train_clip_norm"]))
+
+
+def random_adam_case(gen, shapes, dev, count=7):
+    """Parameters, gradients and a per-tensor Adam state of ``shapes``
+    (normal draws; nu from squares, so it is positive)."""
+    import torch
+
+    from pigs_tpu_torch.train.optim import AdamState
+
+    def draw(scale=1.0):
+        return [(scale * torch.randn(sh, generator=gen)).to(dev)
+                for sh in shapes]
+    nu = [x * x for x in draw(1e-2)]
+    return draw(), draw(1e-2), AdamState(
+        draw(1e-3), nu, torch.tensor(count, dtype=torch.int32, device=dev))
+
+
+def flat(ts):
+    import torch
+    return torch.cat([t.detach().reshape(-1).double().cpu() for t in ts])
+
+
+def adam_case(label, params, grads, state, lr, clip, skip):
+    """K6 from ``(params, grads, state)``, through ``adam_update``'s
+    dispatch (the parameters cloned, nothing the caller holds changes),
+    against its float32 twin and the float64 plain path: the errors, and
+    K6's parameters and state.  Fails on a count or skip decision that
+    differs, a call that did not launch K6 once, an old state that changed,
+    or two launches that differ by a bit."""
+    import torch
+
+    from pigs_tpu_torch.ops import optim_kernel as ok
+    from pigs_tpu_torch.train.optim import (AdamState, adam_update,
+                                            adam_update_plain, global_norm)
+
+    def clone(ts, dtype=None):
+        return [t.detach().clone() if dtype is None else t.detach().to(dtype)
+                for t in ts]
+
+    def k6():
+        p = clone(params)
+        before = ok.launches
+        new = adam_update(p, list(grads), state, lr, clip_norm=clip,
+                          skip_nonfinite=skip)
+        torch.cuda.synchronize()
+        check(ok.launches == before + 1,
+              f"K6 {label}: {ok.launches - before} launches counted")
+        return p, new
+
+    old = (flat(state.mu), flat(state.nu), int(state.count))
+    p_k, s_k = k6()
+    check(torch.equal(flat(state.mu), old[0]) and torch.equal(
+        flat(state.nu), old[1]) and int(state.count) == old[2],
+        f"K6 {label}: the old Adam state changed")
+    p_k2, s_k2 = k6()
+    check(torch.equal(flat(p_k), flat(p_k2))
+          and torch.equal(s_k.mu.flat, s_k2.mu.flat)
+          and torch.equal(s_k.nu.flat, s_k2.nu.flat)
+          and int(s_k.count) == int(s_k2.count),
+          f"K6 {label}: two launches on the same inputs differ")
+    check([tuple(m.shape) for m in s_k.mu] == [tuple(p.shape) for p in params]
+          and [tuple(v.shape) for v in s_k.nu]
+          == [tuple(p.shape) for p in params],
+          f"K6 {label}: the moments lost their parameters' shapes")
+
+    p_t = clone(params)
+    s_t = adam_update_plain(p_t, grads, state, lr, clip, skip)
+    f64 = torch.float64
+    p_d = clone(params, f64)
+    s_d = adam_update_plain(
+        p_d, clone(grads, f64), AdamState(clone(state.mu, f64),
+                                          clone(state.nu, f64), state.count),
+        lr.double() if isinstance(lr, torch.Tensor) else lr, clip, skip)
+    torch.cuda.synchronize()
+    counts = (int(s_k.count), int(s_t.count), int(s_d.count))
+    check(len(set(counts)) == 1,
+          f"K6 {label}: counts {counts} (K6, f32 twin, f64)")
+    skipped = counts[0] == old[2]
+    p0 = flat(params)
+    err = {"label": label, "skipped": skipped,
+           "norm": float(global_norm(grads))}
+    if skipped:
+        check(torch.equal(flat(p_k), p0) and torch.equal(
+            s_k.mu.flat.cpu().double(), old[0])
+            and torch.equal(s_k.nu.flat.cpu().double(), old[1]),
+            f"K6 {label}: a skipped step changed the parameters or moments")
+        return err, p_k, s_k
+    # The float64 path's parameters are rounded to float32, as K6 stores
+    # them: at lr 3e-4 on parameters of order 1 that rounding alone is
+    # ~1e-3 of the change, in any float32 implementation.
+    p_d = [p.float() for p in p_d]
+    for tag, p_ref, s_ref, tol in (("f32", p_t, s_t, K6_F32_TOL),
+                                   ("f64", p_d, s_d, K6_F64_TOL)):
+        e = {"change": rel_err(flat(p_k) - p0, flat(p_ref) - p0),
+             "mu": rel_err(flat(s_k.mu), flat(s_ref.mu)),
+             "nu": rel_err(flat(s_k.nu), flat(s_ref.nu))}
+        check(max(e.values()) <= tol,
+              f"K6 {label}: norm-relative error vs the {tag} plain path "
+              f"{e} (tolerance {tol})")
+        err[tag] = e
+    return err, p_k, s_k
+
+
+def adam_bound(total: int) -> tuple:
+    """(bound_ms, what bounds it) of one K6 launch over ``total``
+    elements: per element the gradient, parameter and both moments read
+    once, the parameter and both moments written once; 18 FLOP (norm 2,
+    clip 2, moments 7, bias correction 2, the denominator and the update 5)
+    and a square root."""
+    return roofline(18 * total, total, 28 * total)
+
+
+def optim_phase(dev, card, ptxas) -> dict:
+    """Phase 16: K6 against its twins, then timed (see the module
+    docstring).  ``ptxas`` is phase 1's report of the adam library."""
+    import torch
+
+    from pigs_tpu_torch.ops import optim_kernel as ok
+    from pigs_tpu_torch.train.optim import (AdamState, adam_update,
+                                            adam_update_plain)
+    errs = []
+    gen = torch.Generator().manual_seed(16)
+    nets = {"flagship": adam_fixture(TRAIN_FIXTURE, dev),
+            "NS": adam_fixture(NS_TRAIN_FIXTURE, dev)}
+    for name, (params, grads, opt, base_lr, clip) in nets.items():
+        total = sum(p.numel() for p in params)
+        lr = torch.full((), base_lr, device=dev)
+        norm = float(torch.linalg.vector_norm(flat(grads)))
+        # (a) JAX's gradient scaled to put the clip on and off, from the
+        # checkpoint's per-tensor state (moments transposed as flax lays
+        # them out: copied to the parameters' layout first).
+        for factor, tag in ((2.0, "clip active"), (0.5, "clip inactive")):
+            g = [x * (factor * clip / norm) for x in grads]
+            copies = ok.layout_copies
+            e, p1, s1 = adam_case(f"{name} {total} {tag}", params, g, opt, lr,
+                                  clip, True)
+            e["layout_copies"] = ok.layout_copies - copies
+            errs.append(e)
+        # (b) from K6's own output state (the flat buffers read directly).
+        copies = ok.layout_copies
+        errs.append(adam_case(f"{name} from K6's state", p1, g, s1, lr,
+                              clip, True)[0])
+        check(ok.layout_copies == copies,
+              f"K6 {name}: K6's own state was copied "
+              f"({ok.layout_copies - copies})")
+        # (c) one NaN, one inf: parameters, moments and count unchanged.
+        for bad in (float("nan"), float("inf")):
+            g = [x.clone() for x in grads]
+            i = next(k for k in range(len(g) // 2, len(g))
+                     if g[k].numel() > 3)
+            g[i].view(-1)[3] = bad
+            e = adam_case(f"{name} one {bad} gradient", params, g, opt, lr,
+                          clip, True)[0]
+            check(e["skipped"], f"K6 {name}: a {bad} gradient was applied")
+            errs.append(e)
+        # (d) a transposed gradient: one layout copy, the same bits.
+        i = next(k for k, p in enumerate(params) if p.dim() == 2
+                 and p.shape[0] != p.shape[1])
+        g = list(grads)
+        g[i] = grads[i].t().contiguous().t()
+        st = AdamState(list(s1.mu), list(s1.nu), s1.count)
+        _, p_c, s_c = adam_case(f"{name} contiguous", params, grads, st, lr,
+                                clip, True)
+        copies = ok.layout_copies
+        e, p_t, s_t = adam_case(f"{name} transposed gradient {i}", params, g,
+                                st, lr, clip, True)
+        check(ok.layout_copies == copies + 2,   # adam_case launches twice
+              f"K6 {name}: {ok.layout_copies - copies} layout copies for one "
+              "transposed gradient over two launches")
+        check(torch.equal(flat(p_t), flat(p_c))
+              and torch.equal(s_t.mu.flat, s_c.mu.flat),
+              f"K6 {name}: a transposed gradient changed the result")
+        errs.append(e)
+    # (e) the other callers' sizes: a no-MLP solve's raw parameters (2-D;
+    # 1-D with its empty transforms), a fit's single tensor, the most
+    # tensors a launch takes, and a total ten times the networks', where
+    # each of the cluster's blocks strides over ~38 k elements.
+    sizes = {"no-MLP 2-D 1024": [(1024, 2), (1024, 1), (1024, 2), (1024, 1)],
+             "no-MLP 1-D 1024": [(1024, 1), (1024, 1), (1024, 1), (1024, 0)],
+             "fit 1024x2": [(1024, 2)],
+             f"{ok.MAX_TENSORS} tensors": [(int(n),) for n in torch.randint(
+                 1, 700, (ok.MAX_TENSORS,), generator=gen)],
+             "300k": [(512, 512), (40000,), (3,), (13, 517)]}
+    for label, shapes in sizes.items():
+        params, grads, state = random_adam_case(gen, shapes, dev)
+        total = sum(p.numel() for p in params)
+        # The plain path's skip test has no answer on an empty tensor; the
+        # 1-D solve skips nothing.
+        for clip, skip, lr in ((None, False, 1e-3), (1.0, True, 5e-3),
+                               (0.01, True, torch.full((), 2e-3,
+                                                       device=dev)))[
+                                   :1 if "1-D" in label else 3]:
+            errs.append(adam_case(f"{label} ({total}) clip {clip}", params,
+                                  grads, state, lr, clip, skip)[0])
+    for tag in ("f32", "f64"):
+        worst = max(max(e[tag].values()) for e in errs if tag in e)
+        print(f"[optim] K6 {len(errs)} cases pass; max norm-relative error "
+              f"vs the {tag} plain path {worst:.3e}", flush=True)
+    for e in errs:
+        print(f"[optim] {json.dumps(e)}", flush=True)
+
+    # Times at both networks, from the checkpoint's state in K6's layout.
+    times = {}
+    for name, (params, grads, opt, base_lr, clip) in nets.items():
+        total = sum(p.numel() for p in params)
+        lr = torch.full((), base_lr, device=dev)
+        st = AdamState(*ok.adam_step(params, grads, opt.mu, opt.nu, opt.count,
+                                     lr, clip, True, 0.9, 0.999, 1e-8))
+        twin = [p.clone() for p in params]
+        label = f"{name} {len(params)} tensors, {total} elements"
+
+        def launch():
+            return ok.adam_step(params, grads, st.mu, st.nu, st.count, lr,
+                                clip, True, 0.9, 0.999, 1e-8)
+        t = time_kernel(launch, lambda: adam_update(
+            params, grads, st, lr, clip_norm=clip, skip_nonfinite=True),
+            lambda: adam_update_plain(twin, grads, st, lr, clip, True))
+        t["bound_ms"], t["bound_by"] = adam_bound(total)
+        print(describe_kernel_times("adam", label, t, card), flush=True)
+        times[label] = t
+    for kernel, r in ptxas.items():
+        print(f"[optim] ptxas: {kernel}: {r['registers']} registers, "
+              f"{r['spill_stores']} + {r['spill_loads']} bytes spilled",
+              flush=True)
+
+    def col(key):
+        return {label: v[key] for label, v in times.items()}
+    row = {"name": "adam", "route": "cuda",
+           "source": "pigs_tpu_torch/ops/csrc/adam.cu",
+           "replaces": None,
+           "replaces_note": "the JAX package's optax Adam (clip_by_global_"
+                            "norm, adam), which XLA fuses: no Pallas kernel",
+           "max_err": {tag: max(max(e[tag].values()) for e in errs
+                                if tag in e) for tag in ("f32", "f64")},
+           "cases": len(errs),
+           "device_ms_by_shape": col("device_ms"),
+           "graph_ms_by_shape": col("graph_ms"),
+           "call_ms_by_shape": col("call_ms"),
+           "plain_ms_by_shape": col("plain_ms"),
+           "bound_ms_by_shape": col("bound_ms"),
+           "bound_by_shape": col("bound_by"),
+           "share_of_bound_by_shape": {label: v["bound_ms"] / v["device_ms"]
+                                       for label, v in times.items()},
+           "device_ms_source_by_shape": col("device_source"),
+           "kernels_per_launch_by_shape": col("kernels_per_launch"),
+           "kernel_ms_by_shape": col("kernel_ms"),
+           "grid": f"one cluster of {ok.CLUSTER} blocks of {ok.THREADS} "
+                   "threads, every size",
+           "library_ms": None, "library_note": LIBRARY_NOTE,
+           "ptxas": ptxas}
+    return {"row": row, "errs": errs}
 
 
 def run() -> tuple:
@@ -3052,6 +3380,7 @@ def run() -> tuple:
     from pigs_tpu_torch.models.state import covariance_of
     from pigs_tpu_torch.ops import aggregate_kernel as ak
     from pigs_tpu_torch.ops import mixture_kernel as mk
+    from pigs_tpu_torch.ops import optim_kernel as ok
     from pigs_tpu_torch.train.pn import (pn_epoch, rollout, rollout_frames,
                                          rollout_metrics)
 
@@ -3065,11 +3394,12 @@ def run() -> tuple:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(mk.build), pool.submit(ak.build)]
-        infos = {**builds[0].result(), **builds[1].result()}
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(mk.build), pool.submit(ak.build),
+                  pool.submit(ok.build)]
+        infos = {k: v for b in builds for k, v in b.result().items()}
     print(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
-          "(all four sources at once)", flush=True)
+          "(all five sources at once)", flush=True)
     for name, info in infos.items():
         print(f"[device] {name}: {info.seconds:.2f} s "
               f"({'compiled' if info.compiled else 'cached'}: {info.path})",
@@ -3078,10 +3408,10 @@ def run() -> tuple:
             print(f"  ptxas: {kernel}: {r['registers']} registers, "
                   f"{r['spill_stores']} + {r['spill_loads']} bytes spilled",
                   flush=True)
-    # Every K1-K5 instantiation, compiled now or cached, spills nothing.
+    # Every K1-K6 instantiation, compiled now or cached, spills nothing.
     ptxas = {lib: ptxas_report(infos[lib].log)
              for lib in ("mixture_fwd", "mixture_bwd", "aggregate_fwd",
-                         "aggregate_bwd")}
+                         "aggregate_bwd", "adam")}
     for lib, kernel, count in (
             ("mixture_fwd", "mixture_fwd_kernel<", 8),
             ("mixture_fwd", "combine_slices_kernel<FwdStore", 2),
@@ -3097,13 +3427,14 @@ def run() -> tuple:
             ("aggregate_bwd", "aggregate_bwd_row_merge_kernel", 1),
             ("aggregate_bwd", "aggregate_bwd_col_kernel", 1),
             ("aggregate_bwd", "aggregate_bwd_col_merge_kernel", 1),
-            ("aggregate_bwd", "aggregate_bwd_reduce_kernel", 1)):
+            ("aggregate_bwd", "aggregate_bwd_reduce_kernel", 1),
+            ("adam", "adam_cluster_kernel", 1)):
         found = sum(k.startswith(kernel) for k in ptxas[lib])
         check(found == count, f"{lib}: ptxas reported {found} of the "
               f"{count} {kernel}... instantiations")
     spilled = [k for r in ptxas.values() for k, v in r.items()
                if v["spill_stores"] + v["spill_loads"] > 0]
-    check(not spilled, f"K1-K5 instantiations spill: {spilled}")
+    check(not spilled, f"K1-K6 instantiations spill: {spilled}")
 
     # 2. K1 vs plain
     cfg, network, data = load_fixture(FIXTURE, device=dev)
@@ -3254,9 +3585,9 @@ def run() -> tuple:
     frames = rollout_frames(cfg, network, state0, steps, res, dt)
     torch.cuda.synchronize()
     counts["rollout"] = read_counts(mk, ak)
-    check(counts["rollout"][:3] == (2 * steps, 0, 0),
-          f"rollout launches (K1-K5) {counts['rollout']}, expected "
-          f"({2 * steps}, 0, 0, ...)")
+    check(counts["rollout"] == (2 * steps, 0, 0, 0, 0, 0),
+          f"rollout launches (K1-K6) {counts['rollout']}, expected "
+          f"({2 * steps}, 0, 0, 0, 0, 0)")
     frames = frames.cpu().numpy()
     check(frames.shape == (steps, cfg.channels, res, res),
           f"frames shape {frames.shape}")
@@ -3300,9 +3631,11 @@ def run() -> tuple:
     # boundary samples).  Each step: forward_step 1 K1 (order 2 at the
     # means); sample_fields of the new state 2 K1, whose backward is 2 K2
     # (the samples need no gradient: no K3); adaptive_split 3 K1 (density,
-    # value now, value before); sample_fields of the split state 2 K1.
+    # value now, value before); sample_fields of the split state 2 K1; the
+    # Adam step 1 K6.
     counts["epoch"], first = split_epoch_phase(
-        ti, mk, ak, (2 + 8 * ti.n_steps, 2 * ti.n_steps, 0), "epoch")
+        ti, mk, ak, (2 + 8 * ti.n_steps, 2 * ti.n_steps, 0, ti.n_steps),
+        "epoch")
 
     # 7. train() resumed from the fixture for 3 epochs, checkpoint, EMA rollout
     log = []
@@ -3312,9 +3645,12 @@ def run() -> tuple:
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t_train
     counts["train"] = read_counts(mk, ak)
+    adam_steps = int(result.opt_state.count) - int(ti.opt0.count)
     check(counts["train"][0] > 0 and counts["train"][1] > 0
-          and counts["train"][2] == 0,
-          f"train() launches (K1-K5) {counts['train']}")
+          and counts["train"][2] == 0
+          and counts["train"][5] == adam_steps > 0,
+          f"train() launches (K1-K6) {counts['train']}, {adam_steps} Adam "
+          "steps")
     back = check_round_trip(ti, result, dev)
     ema_net = make_network(cfg, frequencies=network.frequencies.cpu(),
                            device=dev)
@@ -3322,7 +3658,7 @@ def run() -> tuple:
     ema_frames = rollout_frames(cfg, ema_net, state0, steps, res, dt)
     ema_metrics = rollout_metrics(ema_frames.cpu().numpy()[:, 0],
                                   data["fd_frames"])
-    print(f"[train] 3 epochs in {t_train:.2f} s; launches (K1-K5) "
+    print(f"[train] 3 epochs in {t_train:.2f} s; launches (K1-K6) "
           f"{counts['train']}; checkpoint round trip equal; EMA rollout mean "
           f"rel-L2 vs FD {ema_metrics['mean_rel_norm']:.6f} (JAX-CPU "
           f"{jax_mean:.6f})", flush=True)
@@ -3445,36 +3781,23 @@ def run() -> tuple:
     par = parallel_phase(dev, mk, ak, card, ti, med["auto"])
     counts.update(par["counts"])
 
+    # 16. K6, the Adam step, against its twins; timed
+    opt = optim_phase(dev, card, ptxas["adam"])
+
     for phase in (ns, nst, nmp, nsd):
         times["mixture_fwd"].update(phase["k1_times"])
     for phase in (nst, nmp, nsd):
         times["mixture_bwd_gauss"].update(phase["k2_times"])
     times.update(agg["kernel_times"])
-    kernels = []
-    for i, (name, source, line, max_abs) in enumerate((
-            ("mixture_fwd", "mixture_fwd.cu", "pallas_mixture.py:211",
-             k1_abs),
-            ("mixture_bwd_gauss", "mixture_bwd.cu", "pallas_mixture.py:313",
-             bwd_abs),
-            ("mixture_bwd_sample", "mixture_bwd.cu", "pallas_mixture.py:364",
-             bwd_abs),
-            ("aggregate_fwd", "aggregate_fwd.cu", "pallas_aggregate.py:246",
-             agg["max_abs"]["fwd"]),
-            ("aggregate_bwd", "aggregate_bwd.cu", "pallas_aggregate.py:287",
-             agg["max_abs"]["bwd"]))):
-        by_path = {path: c[i] for path, c in counts.items()}
-        if i >= 3:
-            by_path["aggregate"] = agg["launches"]["fwd" if i == 3 else "bwd"]
-        t = times[name]
+    parallel = {**par["counts"], **par["parallel"]}
 
-        def col(key):
-            return {label: v[key] for label, v in t.items()}
-        bound_by = col("bound_by")
-        parallel = {**par["counts"], **par["parallel"]}
-        row = {
-            "name": name, "route": "cuda",
-            "source": f"pigs_tpu_torch/ops/csrc/{source}",
-            "replaces": f"pigs_tpu/ops/{line}",
+    def launch_fields(i):
+        """Kernel i's (K1 = 0) launches by path, as each path's run read
+        the counters, and per step or iteration of the main paths."""
+        by_path = {path: c[i] for path, c in counts.items()}
+        if i in (3, 4):
+            by_path["aggregate"] = agg["launches"]["fwd" if i == 3 else "bwd"]
+        return {
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "launches_per_train_step": counts["epoch"][i] / ti.n_steps,
@@ -3496,7 +3819,30 @@ def run() -> tuple:
                         "more)"},
             "on_main_path": any(counts[p][i] for p in (
                 "rollout", "epoch", "ns", "ns_epoch", "no_mlp_block",
-                "fit_block")),
+                "fit_block"))}
+
+    kernels = []
+    for i, (name, source, line, max_abs) in enumerate((
+            ("mixture_fwd", "mixture_fwd.cu", "pallas_mixture.py:211",
+             k1_abs),
+            ("mixture_bwd_gauss", "mixture_bwd.cu", "pallas_mixture.py:313",
+             bwd_abs),
+            ("mixture_bwd_sample", "mixture_bwd.cu", "pallas_mixture.py:364",
+             bwd_abs),
+            ("aggregate_fwd", "aggregate_fwd.cu", "pallas_aggregate.py:246",
+             agg["max_abs"]["fwd"]),
+            ("aggregate_bwd", "aggregate_bwd.cu", "pallas_aggregate.py:287",
+             agg["max_abs"]["bwd"]))):
+        t = times[name]
+
+        def col(key):
+            return {label: v[key] for label, v in t.items()}
+        bound_by = col("bound_by")
+        row = {
+            "name": name, "route": "cuda",
+            "source": f"pigs_tpu_torch/ops/csrc/{source}",
+            "replaces": f"pigs_tpu/ops/{line}",
+            **launch_fields(i),
             "max_abs_err": max_abs,
             "timed": "ms (device), call_ms, plain_ms and bound_ms sum the "
                      "shapes of the *_by_shape fields",
@@ -3554,6 +3900,17 @@ def run() -> tuple:
                        for n in PERF_SUITE_SIZES}
                 for impl in ("kernel", "factored", "plain")}
         kernels.append(row)
+    # K6: the counts of every path's own run, and its device time per step
+    # and the K6 kernels the profiler saw in each path's profile.
+    row = {**opt["row"], **launch_fields(5)}
+    for key, profile in (("pn_step", step_profile),
+                         ("ns_pn_step", nst["profile"]),
+                         ("no_mlp_iteration", nmp["profile"]),
+                         ("fit_iteration", nsd["profile"])):
+        row[f"device_ms_per_{key}"] = profile["adam"]["device_ms_per_step"]
+        row[f"profiled_kernels_per_{key}"] = \
+            profile["adam"]["kernels_per_step"]
+    kernels.append(row)
     return {"kernels": kernels,
             "pn_step_ms": med, "epoch_ms": emed, "rollout_ms": evo * 1e3,
             "ema_rollout_mean_rel_l2": ema_metrics["mean_rel_norm"],

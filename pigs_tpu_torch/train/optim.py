@@ -11,25 +11,39 @@ before every step.  This module reproduces that arithmetic:
   ``nu = (1 - b2) g^2 + b2 nu``, bias-corrected by ``1 - b^count``, and the
   parameters move by ``-lr * mu_hat / (sqrt(nu_hat) + eps)``;
 * skip-nonfinite: when any raw gradient is not finite, parameters, mu, nu
-  and count all keep their old values.  The choice is made on the device
-  with ``torch.where``, so the step never waits for the host.
+  and count all keep their old values.  The choice is made on the device,
+  so the step never waits for the host.
+
+On CUDA float32 parameters :func:`adam_update` is one launch of the CUDA
+kernel K6 (:mod:`pigs_tpu_torch.ops.optim_kernel`); everywhere else (the
+CPU, float64) it runs :func:`adam_update_plain`, the same arithmetic in
+per-tensor PyTorch operations (``torch.where`` for the skip), which is
+also K6's plain twin.  Either way the update is functional on the state:
+the old state's tensors are left as they were, and only the parameters
+are written in place.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-__all__ = ["AdamState", "adam_init", "adam_update", "global_norm"]
+from pigs_tpu_torch.ops import optim_kernel
+
+__all__ = ["AdamState", "adam_init", "adam_update", "adam_update_plain",
+           "global_norm"]
 
 
 class AdamState(NamedTuple):
-    """optax's ``ScaleByAdamState``: one moment tensor per parameter and
-    the int32 step count, all on the parameters' device."""
+    """optax's ``ScaleByAdamState``: one moment tensor per parameter, in
+    parameter order and shape, and the int32 step count, all on the
+    parameters' device.  ``mu`` and ``nu`` are lists, or after a K6 step
+    :class:`~pigs_tpu_torch.ops.optim_kernel.FlatMoments` (sequences of
+    views of one flat buffer each)."""
 
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
+    mu: Sequence[torch.Tensor]
+    nu: Sequence[torch.Tensor]
     count: torch.Tensor
 
 
@@ -64,8 +78,28 @@ def adam_update(params: Sequence[torch.Tensor],
                 skip_nonfinite: bool = False, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8) -> AdamState:
     """One optax Adam step: updates ``params`` in place and returns the new
-    state.  ``lr`` is a 0-d tensor (``base_lr * loss_weight``)."""
+    state.  ``lr`` is a 0-d tensor (``base_lr * loss_weight``) or a float.
+    CUDA float32 parameters take K6, every other case
+    :func:`adam_update_plain`."""
+    params = list(params)
+    if params[0].is_cuda and params[0].dtype is torch.float32:
+        return AdamState(*optim_kernel.adam_step(
+            params, list(grads), state.mu, state.nu, state.count, lr,
+            clip_norm, skip_nonfinite, b1, b2, eps))
+    return adam_update_plain(params, grads, state, lr, clip_norm,
+                             skip_nonfinite, b1, b2, eps)
+
+
+@torch.no_grad()
+def adam_update_plain(params: Sequence[torch.Tensor],
+                      grads: Sequence[torch.Tensor], state: AdamState,
+                      lr: torch.Tensor, clip_norm: Optional[float] = None,
+                      skip_nonfinite: bool = False, b1: float = 0.9,
+                      b2: float = 0.999, eps: float = 1e-8) -> AdamState:
+    """:func:`adam_update` in per-tensor PyTorch operations, on any device
+    and dtype: the path of the CPU and of float64, and K6's plain twin."""
     params, grads = list(params), list(grads)
+    state = state._replace(mu=list(state.mu), nu=list(state.nu))
     dtype = params[0].dtype
     if skip_nonfinite:
         finite = _all_finite(grads)

@@ -13,7 +13,7 @@ behind one module-level check: it allocates nothing, reads no counter and
 adds no device operation or host sync.  On, each span appends a
 :class:`SpanRecord` (its id, the id of the innermost span open on the same
 thread, its name, start and end on ``time.time_ns``'s clock, which is the
-profiler's, and the change across it of the kernels' launch counters K1-K5)
+profiler's, and the change across it of the kernels' launch counters K1-K6)
 and enters ``torch.profiler.record_function(name)``, so a profile or a
 ``trace`` file shows it as a user annotation.  Open spans only on the thread
 that calls the program, never inside an autograd ``Function.backward``
@@ -92,7 +92,8 @@ LAUNCHES = (("k1", "mixture_kernel", "launches"),
             ("k2", "mixture_kernel", "bwd_gauss_launches"),
             ("k3", "mixture_kernel", "bwd_sample_launches"),
             ("k4", "aggregate_kernel", "fwd_launches"),
-            ("k5", "aggregate_kernel", "bwd_launches"))
+            ("k5", "aggregate_kernel", "bwd_launches"),
+            ("k6", "optim_kernel", "launches"))
 
 
 class SpanRecord:
@@ -123,9 +124,11 @@ class _Tracing:
     per thread."""
 
     def __init__(self):
-        from pigs_tpu_torch.ops import aggregate_kernel, mixture_kernel
+        from pigs_tpu_torch.ops import (aggregate_kernel, mixture_kernel,
+                                        optim_kernel)
         modules = {"mixture_kernel": mixture_kernel,
-                   "aggregate_kernel": aggregate_kernel}
+                   "aggregate_kernel": aggregate_kernel,
+                   "optim_kernel": optim_kernel}
         self.counters = [(label, modules[module], name)
                          for label, module, name in LAUNCHES]
         self.records: List[SpanRecord] = []
