@@ -14,6 +14,20 @@ K3 never runs.  A block draws its random numbers up front
 (:func:`block_draws`) and makes no host sync; the only sync is reading the
 block's mean loss, which the convergence rule needs.  The Adam step updates
 the parameters in place.
+
+:func:`timestep_blocks` runs one timestep as a generator over its blocks,
+so a caller sees each block's end; :func:`solve_timestep` and
+:func:`solve` consume it.  Spans (``utils.profiling.span``, recorded only
+inside ``tracing()``): ``solve`` (one :func:`solve_timestep`), and below it
+``solve.block``, with ``solve.draws`` (:func:`block_draws`), the block's
+iterations, ``solve.read`` (the block loss's host read and the convergence
+rule) and ``solve.densify``; an iteration is a ``step`` with
+``step.fields`` (the samples and the previous mixture's fields),
+``step.loss`` (the current mixture and the residual), ``step.backward``
+(K2) and ``step.adam`` (K6).  The module's counters, read across spans as
+the kernels' launch counters are: :data:`iterations`, :data:`blocks`,
+:data:`stopped_tol` and :data:`stopped_cap` (timesteps ended by the
+convergence rule and by ``max_iters``) and :data:`densify_calls`.
 """
 
 from __future__ import annotations
@@ -29,9 +43,21 @@ from pigs_tpu_torch.models.state import _scatter_rows, compact_scatter
 from pigs_tpu_torch.ops.mixture import eval_mixture
 from pigs_tpu_torch.pde import Problem
 from pigs_tpu_torch.train.optim import AdamState, adam_init, adam_update
+from pigs_tpu_torch.utils.profiling import span
 
-__all__ = ["NoMLPConfig", "RawParams", "init_params", "concrete",
-           "solve", "solve_timestep", "densify", "draw_samples"]
+__all__ = ["NoMLPConfig", "RawParams", "BlockState", "init_params",
+           "concrete", "solve", "solve_timestep", "timestep_blocks",
+           "densify", "draw_samples"]
+
+# Process-wide counters (host integers, whatever the device): Adam
+# iterations, blocks, timesteps stopped by the convergence rule (the window
+# mean under ``tol``; the IC fit's plateau) and by ``max_iters``, and
+# densify calls.
+iterations = 0
+blocks = 0
+stopped_tol = 0
+stopped_cap = 0
+densify_calls = 0
 
 
 class RawParams(NamedTuple):
@@ -270,30 +296,39 @@ def _run_block(cfg: NoMLPConfig, params: RawParams, opt_state: AdamState,
     ``count``, on the draws given.  Updates ``params`` in place; returns
     ``(params, opt_state, grad_acc, mean loss)``, ``grad_acc`` the sum of
     the block's gradients (a :class:`RawParams`)."""
+    global iterations
     schedule = _make_opt(cfg)
     grad_acc = [torch.zeros_like(p) for p in params]
     losses = []
     for i in range(cfg.block_iters):
-        samples = draw_samples(
-            cfg, draws.base[i], params,
-            None if draws.idx is None else draws.idx[i],
-            None if draws.z is None else draws.z[i], first_step)
-        prev = None
-        if not first_step:
-            pm, pc, pv, pa = prev_mixture
-            with torch.no_grad():
-                pout = eval_mixture(pm, pc, pv, samples, order=2, mask=pa)
-            prev = (pout.u, pout.ux, pout.uxx)
-        loss = _loss_fn(cfg, params, active, prev, samples, draws.time[i],
-                        first_step)
-        grads = torch.autograd.grad(loss, list(params), allow_unused=True)
-        # d=1 has no transforms: an empty tensor no loss reaches.
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        opt_state = adam_update(params, grads, opt_state,
-                                schedule(count + i))
-        torch._foreach_add_(grad_acc, grads)
-        losses.append(loss.detach())
+        with span("step"):
+            with span("step.fields"):
+                samples = draw_samples(
+                    cfg, draws.base[i], params,
+                    None if draws.idx is None else draws.idx[i],
+                    None if draws.z is None else draws.z[i], first_step)
+                prev = None
+                if not first_step:
+                    pm, pc, pv, pa = prev_mixture
+                    with torch.no_grad():
+                        pout = eval_mixture(pm, pc, pv, samples, order=2,
+                                            mask=pa)
+                    prev = (pout.u, pout.ux, pout.uxx)
+            with span("step.loss"):
+                loss = _loss_fn(cfg, params, active, prev, samples,
+                                draws.time[i], first_step)
+            with span("step.backward"):
+                grads = torch.autograd.grad(loss, list(params),
+                                            allow_unused=True)
+                # d=1 has no transforms: an empty tensor no loss reaches.
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)]
+            with span("step.adam"):
+                opt_state = adam_update(params, grads, opt_state,
+                                        schedule(count + i))
+            torch._foreach_add_(grad_acc, grads)
+            losses.append(loss.detach())
+            iterations += 1
     return params, opt_state, RawParams(*grad_acc), torch.stack(losses).mean()
 
 
@@ -311,6 +346,8 @@ def densify(cfg: NoMLPConfig, params: RawParams, opt_state: AdamState,
     The moments of fresh slots (children, and pruned slots) are zeroed; the
     count is kept.  Returns ``(params, opt_state, active)``.
     """
+    global densify_calls
+    densify_calls += 1
     grad_norm = torch.linalg.vector_norm(mean_grad_acc, dim=-1)
     value_norm = torch.linalg.vector_norm(params.values, dim=-1)
     keep = ((value_norm > 0.01)
@@ -347,18 +384,36 @@ def densify(cfg: NoMLPConfig, params: RawParams, opt_state: AdamState,
             keep | landed)
 
 
-def solve_timestep(cfg: NoMLPConfig, params: RawParams, active,
-                   prev_mixture, generator: torch.Generator,
-                   first_step: bool, densify_every: Optional[int] = None):
-    """Optimize one timestep to convergence.
+class BlockState(NamedTuple):
+    """What :func:`timestep_blocks` yields after each block: the live
+    ``params`` (Adam updates them in place), ``opt_state``, ``active``, the
+    block's mean ``loss`` as read on the host, ``iters`` (the iterations the
+    timestep has run, which is the next block's pre-step Adam count) and
+    ``done`` (the timestep ends with this block)."""
+
+    params: RawParams
+    opt_state: AdamState
+    active: torch.Tensor
+    loss: float
+    iters: int
+    done: bool
+
+
+def timestep_blocks(cfg: NoMLPConfig, params: RawParams, active,
+                    prev_mixture, generator: torch.Generator,
+                    first_step: bool, densify_every: Optional[int] = None):
+    """Optimize one timestep, yielding a :class:`BlockState` after each
+    block's host read of its mean loss (and the densify that follows it).
 
     Block losses (means over ``block_iters`` iterations) feed a 5-block
     window; the IC fit (``first_step``) runs until the window's relative
     std drops to 0.1 (a plateau), dynamics steps until the window mean
     drops to ``tol``; both cap at ``max_iters`` iterations.  Densification
-    waits out ``cfg.warm_up_blocks``.  ``params`` are copied, not changed.
-    Returns ``(params, active, loss, iterations run)``.
+    waits out ``cfg.warm_up_blocks``.  ``params`` are copied, not changed;
+    a fresh Adam state starts at count 0.  A caller may stop between
+    blocks.
     """
+    global blocks, stopped_tol, stopped_cap
     params = RawParams(*(p.detach().clone().requires_grad_()
                          for p in params))
     opt_state = adam_init(params)
@@ -377,23 +432,55 @@ def solve_timestep(cfg: NoMLPConfig, params: RawParams, active,
             return not np.isnan(rel_std) and rel_std <= 0.1
         return bool(window) and float(np.mean(window)) <= cfg.tol
 
-    while it < cfg.max_iters and not converged():
-        draws = block_draws(cfg, generator, active, first_step)
-        params, opt_state, grad_acc, loss_b = _run_block(
-            cfg, params, opt_state, active, prev_mixture, first_step, draws,
-            it)
-        mean_grad_acc = mean_grad_acc + grad_acc.raw_means / cfg.block_iters
-        block_losses.append(float(loss_b))
-        it += cfg.block_iters
-        block += 1
-        if (densify_every and block % densify_every == 0
-                and block > cfg.warm_up_blocks and not first_step):
-            params, opt_state, active = densify(cfg, params, opt_state,
-                                                active, mean_grad_acc)
-            params = RawParams(*(p.requires_grad_() for p in params))
-            mean_grad_acc = torch.zeros_like(params.raw_means)
-    loss = float(np.mean(block_losses[-5:])) if block_losses else np.inf
-    return RawParams(*(p.detach() for p in params)), active, loss, it
+    done = it >= cfg.max_iters or converged()
+    while not done:
+        with span("solve.block"):
+            blocks += 1
+            with span("solve.draws"):
+                draws = block_draws(cfg, generator, active, first_step)
+            params, opt_state, grad_acc, loss_b = _run_block(
+                cfg, params, opt_state, active, prev_mixture, first_step,
+                draws, it)
+            mean_grad_acc = (mean_grad_acc
+                             + grad_acc.raw_means / cfg.block_iters)
+            with span("solve.read"):
+                loss = float(loss_b)
+                block_losses.append(loss)
+                it += cfg.block_iters
+                block += 1
+                stop = converged()
+                done = stop or it >= cfg.max_iters
+                if stop:
+                    stopped_tol += 1
+                elif done:
+                    stopped_cap += 1
+            if (densify_every and block % densify_every == 0
+                    and block > cfg.warm_up_blocks and not first_step):
+                with span("solve.densify"):
+                    params, opt_state, active = densify(
+                        cfg, params, opt_state, active, mean_grad_acc)
+                    params = RawParams(*(p.requires_grad_() for p in params))
+                    mean_grad_acc = torch.zeros_like(params.raw_means)
+        yield BlockState(params, opt_state, active, loss, it, done)
+
+
+def solve_timestep(cfg: NoMLPConfig, params: RawParams, active,
+                   prev_mixture, generator: torch.Generator,
+                   first_step: bool, densify_every: Optional[int] = None):
+    """Optimize one timestep to convergence: every block of
+    :func:`timestep_blocks`.  ``params`` are copied, not changed.  Returns
+    ``(params, active, loss, iterations run)``, ``loss`` the mean of the
+    last five block losses."""
+    state, losses = None, []
+    with span("solve"):
+        for state in timestep_blocks(cfg, params, active, prev_mixture,
+                                     generator, first_step, densify_every):
+            losses.append(state.loss)
+    if state is None:
+        return (RawParams(*(p.detach().clone() for p in params)), active,
+                np.inf, 0)
+    return (RawParams(*(p.detach() for p in state.params)), state.active,
+            float(np.mean(losses[-5:])), state.iters)
 
 
 def solve(cfg: NoMLPConfig, generator: torch.Generator, n_timesteps: int,

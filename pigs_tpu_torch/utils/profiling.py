@@ -7,15 +7,16 @@ a ``torch.profiler`` trace (the card's kernels too, when there is one) and
 writes it as a Chrome-trace JSON, which Perfetto reads.
 
 ``span(name)`` marks a stretch of the program at a layer boundary (the
-training loop, a step, the network); the spans are recorded only inside
-``tracing()``, their one on-switch.  Off, a span is a shared no-op context
-behind one module-level check: it allocates nothing, reads no counter and
-adds no device operation or host sync.  On, each span appends a
-:class:`SpanRecord` (its id, the id of the innermost span open on the same
-thread, its name, start and end on ``time.time_ns``'s clock, which is the
-profiler's, and the change across it of the kernels' launch counters K1-K6)
-and enters ``torch.profiler.record_function(name)``, so a profile or a
-``trace`` file shows it as a user annotation.  Open spans only on the thread
+training loop, a step, the network, the no-MLP solve); the spans are
+recorded only inside ``tracing()``, their one on-switch.  Off, a span is a
+shared no-op context behind one module-level check: it allocates nothing,
+reads no counter and adds no device operation or host sync.  On, each span
+appends a :class:`SpanRecord` (its id, the id of the innermost span open on
+the same thread, its name, start and end on ``time.time_ns``'s clock,
+which is the profiler's, and the change across it of the kernels' launch
+counters K1-K6 and of the no-MLP solver's counters) and enters
+``torch.profiler.record_function(name)``, so a profile or a ``trace`` file
+shows it as a user annotation.  Open spans only on the thread
 that calls the program, never inside an autograd ``Function.backward``
 (which runs on autograd's device thread): a launch made there while the
 caller waits in ``torch.autograd.grad`` falls inside the caller's span on
@@ -94,6 +95,14 @@ LAUNCHES = (("k1", "mixture_kernel", "launches"),
             ("k4", "aggregate_kernel", "fwd_launches"),
             ("k5", "aggregate_kernel", "bwd_launches"),
             ("k6", "optim_kernel", "launches"))
+# The no-MLP solver's counters, read across spans as the launch counters
+# are: Adam iterations, blocks, timesteps stopped by the convergence rule
+# and by ``max_iters``, densify calls.
+SOLVER_COUNTERS = (("solve_iters", "no_mlp", "iterations"),
+                   ("solve_blocks", "no_mlp", "blocks"),
+                   ("solve_stop_tol", "no_mlp", "stopped_tol"),
+                   ("solve_stop_cap", "no_mlp", "stopped_cap"),
+                   ("solve_densify", "no_mlp", "densify_calls"))
 
 
 class SpanRecord:
@@ -102,8 +111,8 @@ class SpanRecord:
     thread when it opened, or None), ``name``, ``thread``
     (``threading.get_ident()``), ``start_ns`` and ``end_ns`` (``time.time_ns``;
     ``end_ns`` is None while it is open) and ``launches``, the change of
-    each counter of :data:`LAUNCHES` across it, by label (its children's
-    launches included)."""
+    each counter of :data:`LAUNCHES` and :data:`SOLVER_COUNTERS` across it,
+    by label (its children's included)."""
 
     __slots__ = ("id", "parent", "name", "thread", "start_ns", "end_ns",
                  "launches")
@@ -126,11 +135,13 @@ class _Tracing:
     def __init__(self):
         from pigs_tpu_torch.ops import (aggregate_kernel, mixture_kernel,
                                         optim_kernel)
+        from pigs_tpu_torch.train import no_mlp
         modules = {"mixture_kernel": mixture_kernel,
                    "aggregate_kernel": aggregate_kernel,
-                   "optim_kernel": optim_kernel}
+                   "optim_kernel": optim_kernel, "no_mlp": no_mlp}
         self.counters = [(label, modules[module], name)
-                         for label, module, name in LAUNCHES]
+                         for label, module, name
+                         in LAUNCHES + SOLVER_COUNTERS]
         self.records: List[SpanRecord] = []
         self.lock = threading.Lock()
         self.local = threading.local()

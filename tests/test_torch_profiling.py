@@ -147,7 +147,9 @@ def test_span_records_nest_count_and_share_the_clock(monkeypatch):
         if r.name == "outer":
             assert r.parent is None
             assert r.launches == {"k1": 2, "k2": 1, "k3": 0, "k4": 1,
-                                  "k5": 0, "k6": 0}
+                                  "k5": 0, "k6": 0, "solve_iters": 0,
+                                  "solve_blocks": 0, "solve_stop_tol": 0,
+                                  "solve_stop_cap": 0, "solve_densify": 0}
         else:
             parent = records[r.parent]
             assert parent.name == "outer" and r.id in (parent.id + 1,
